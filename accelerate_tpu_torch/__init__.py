@@ -1,0 +1,22 @@
+"""PyTorch / CUDA port of `accelerate_tpu`, for NVIDIA Hopper (H100, sm_90a).
+
+The JAX package beside this one is the reference; this package imports
+neither it nor JAX. It ports the serving path slice by slice:
+
+- `models.llama` / `models.layers`: the Llama decoder's cached forward
+  (prefill and decode over a layer-stacked KV cache, bf16/fp32/int8);
+- `generation`: the fixed-batch generation loop;
+- `serving`: the continuous-batching `Engine` with its prefix cache;
+- `native`: hand-written CUDA kernels (built with ``nvcc`` at first use)
+  and the plain PyTorch version beside each one.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; without a
+card it raises (`utils.environment.resolve_device`). Kernels launch on CUDA
+tensors; a CPU tensor takes the kernel's plain version (the CPU tests).
+"""
+
+from .utils.environment import resolve_device
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]
