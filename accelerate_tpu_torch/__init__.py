@@ -1,12 +1,16 @@
 """PyTorch / CUDA port of `accelerate_tpu`, for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package beside this one is the reference; this package imports
-neither it nor JAX. It ports the serving path slice by slice:
+neither it nor JAX. It ports the framework slice by slice:
 
 - `models.llama` / `models.layers`: the Llama decoder's cached forward
-  (prefill and decode over a layer-stacked KV cache, bf16/fp32/int8);
+  (prefill and decode over a layer-stacked KV cache, bf16/fp32/int8) and
+  its training forward and loss, with the remat policies;
 - `generation`: the fixed-batch generation loop;
 - `serving`: the continuous-batching `Engine` with its prefix cache;
+- `accelerator`, `optim`, `utils.dataclasses`: the single-device train
+  step (mixed precision, accumulation, clipping, AdamW);
+- `ops.flash_attention`: flash attention with its autograd backward;
 - `native`: hand-written CUDA kernels (built with ``nvcc`` at first use)
   and the plain PyTorch version beside each one.
 

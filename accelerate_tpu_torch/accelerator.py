@@ -1,0 +1,160 @@
+"""The single-device train core of the JAX package's `accelerator.py`:
+`Accelerator`, `TrainState`, `create_train_state`, `make_train_step` and
+`global_norm`.
+
+The step follows the JAX `make_train_step`: params cast to the compute
+dtype (autograd flows through the cast, so gradients land on the fp32
+masters in fp32), an fp32 loss, the batch split into microbatches along
+dim 0 with one generator per microbatch from (seed, step, microbatch),
+gradients averaged, clipped by value and then by global norm
+(``min(1, max_norm / (norm + 1e-6))``), and the optimizer update. PyTorch
+runs eagerly, so there is no compile step; the update is in place (the JAX
+step donates its state), and the returned state shares its params and
+optimizer with the one passed in.
+
+Not ported yet, and absent from the signatures rather than ignored: the
+mesh and sharding strategies, host and disk offload, the fp16 loss scale,
+the non-finite guard, telemetry and the lint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
+from .utils.environment import resolve_device
+from .utils.tree import flatten, map_tree
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+    )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step (host int), fp32 master params (a nested dict of leaf tensors
+    that require grad) and the optimizer (its moments are the optimizer
+    state)."""
+
+    step: int
+    params: Any
+    opt_state: torch.optim.Optimizer
+
+    def leaves(self) -> list[torch.Tensor]:
+        return list(flatten(self.params).values())
+
+
+def _microbatch_seed(seed: int, step: int, index: int) -> int:
+    """A 63-bit seed, well mixed from (seed, step, microbatch)."""
+    return int(np.random.SeedSequence([seed, step, index]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class Accelerator:
+    """Single-device entry point: precision policy, accumulation, clipping
+    and the train step, on ``device`` (default CUDA; raises without one)."""
+
+    def __init__(
+        self,
+        *,
+        mixed_precision: str = "no",
+        gradient_accumulation_steps: int = 1,
+        gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
+        max_grad_norm: float | None = None,
+        max_grad_value: float | None = None,
+        seed: int | None = None,
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.policy = MixedPrecisionPolicy.from_precision(mixed_precision)
+        if gradient_accumulation_plugin is None:
+            gradient_accumulation_plugin = GradientAccumulationPlugin(gradient_accumulation_steps)
+        self.gradient_accumulation_steps = gradient_accumulation_plugin.num_steps
+        self.max_grad_norm = max_grad_norm
+        self.max_grad_value = max_grad_value
+        self.seed = 0 if seed is None else int(seed)
+
+    def create_train_state(self, init_fn: Callable[[int], Any] | Any, tx: Any) -> TrainState:
+        """``init_fn`` is ``(seed) -> params`` (called with the
+        Accelerator's seed) or a params tree. Leaves move to the device
+        (cast to ``policy.param_dtype`` when set) and become leaf tensors
+        that require grad; ``tx.init`` builds the optimizer over them."""
+        params = init_fn(self.seed) if callable(init_fn) else init_fn
+        pd = self.policy.param_dtype
+
+        def master(x: torch.Tensor) -> torch.Tensor:
+            x = x.to(self.device)
+            if pd is not None and x.is_floating_point():
+                x = x.to(pd)
+            return x.detach().requires_grad_(x.is_floating_point())
+
+        params = map_tree(master, params)
+        leaves = [x for x in flatten(params).values() if x.requires_grad]
+        return TrainState(step=0, params=params, opt_state=tx.init(leaves))
+
+    def make_train_step(
+        self, loss_fn: Callable[..., Any], *, has_aux: bool = False
+    ) -> Callable[[TrainState, Any], tuple[TrainState, dict[str, torch.Tensor]]]:
+        """``loss_fn(params, batch, generator) -> loss`` (or ``(loss, aux)``
+        with ``has_aux``; aux is dropped, as JAX drops it without
+        ``extra_metrics_fn``). Returns ``step(state, batch) -> (state,
+        metrics)`` with metrics ``{"loss"}`` plus ``"grad_norm"`` (the norm
+        before clipping) when ``max_grad_norm`` is set."""
+        accum = self.gradient_accumulation_steps
+        policy = self.policy
+        max_grad_norm, max_grad_value = self.max_grad_norm, self.max_grad_value
+
+        def step_fn(state: TrainState, batch: Any) -> tuple[TrainState, dict[str, torch.Tensor]]:
+            leaves = [p for p in state.leaves() if p.requires_grad]
+            for p in leaves:
+                p.grad = None
+            microbatches = _split(batch, accum) if accum > 1 else [batch]
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for index, mb in enumerate(microbatches):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(_microbatch_seed(self.seed, state.step, index))
+                out = loss_fn(policy.cast_for_compute(state.params), policy.cast_for_compute(mb), gen)
+                loss = (out[0] if has_aux else out).float()
+                loss.backward()
+                loss_sum += loss.detach()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+            if accum > 1:
+                torch._foreach_div_(grads, float(accum))
+            loss = loss_sum / accum
+            metrics = {"loss": loss if policy.output_dtype is None else loss.to(policy.output_dtype)}
+            if max_grad_value is not None:
+                torch._foreach_clamp_min_(grads, -max_grad_value)
+                torch._foreach_clamp_max_(grads, max_grad_value)
+            if max_grad_norm is not None:
+                gnorm = global_norm(grads)
+                clip = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+                torch._foreach_mul_(grads, clip)
+                metrics["grad_norm"] = gnorm
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            state.opt_state.step()
+            return dataclasses.replace(state, step=state.step + 1), metrics
+
+        return step_fn
+
+
+def _split(batch: Any, accum: int) -> list[Any]:
+    """The batch (a dict of tensors, or one tensor) as ``accum``
+    microbatches along dim 0."""
+    if isinstance(batch, dict):
+        parts = {k: _split(v, accum) for k, v in batch.items()}
+        return [{k: parts[k][i] for k in batch} for i in range(accum)]
+    b = batch.shape[0]
+    if b % accum != 0:
+        raise ValueError(
+            f"Global batch size {b} is not divisible by "
+            f"gradient_accumulation_steps={accum}; adjust the "
+            "dataloader batch size or the accumulation steps."
+        )
+    return list(batch.reshape((accum, b // accum) + tuple(batch.shape[1:])).unbind(0))

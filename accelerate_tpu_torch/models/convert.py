@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..utils.environment import resolve_device
-from .llama import LlamaConfig, Params, flatten, nest, param_shapes
+from ..utils.tree import flatten, nest
+from .llama import LlamaConfig, Params, param_shapes
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""Shared building blocks of the decoder's cached forward, as plain
-functions over tensors and parameter dicts.
+"""Shared building blocks of the decoder's forward (cached and training), as
+plain functions over tensors and parameter dicts.
 
 This is the subset of the JAX package's `models/layers.py` that the serving
-path runs, with its tensor layouts kept at every public function so the two
-can be compared like with like: activations (B, S, H, h), caches
-layer-stacked (L, B, T, ...), attention weights wq/wk/wv (D, heads, h) and
-wo (H, h, D).
+and training paths run, with its tensor layouts kept at every public
+function so the two can be compared like with like: activations
+(B, S, H, h), caches layer-stacked (L, B, T, ...), attention weights
+wq/wk/wv (D, heads, h) and wo (H, h, D).
 
 Where JAX returns an updated copy (its arrays are immutable and the cache
 is donated), the port updates the cache IN PLACE and returns the same
@@ -21,12 +21,18 @@ Conventions: ``B`` batch, ``S`` sequence, ``D`` model dim, ``H`` heads,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..native.decode_attention import flash_decode
 
@@ -45,6 +51,49 @@ def truncated_normal_init(
     out = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return out.to(dtype) * stddev
+
+
+# --------------------------------------------------------------------- remat
+# The checkpoint names each policy keeps (the JAX `save_only_these_names`
+# sets): a block remats as checkpointed segments cut right after each kept
+# name, so exactly those tensors (plus the block input, the JAX scan carry)
+# survive the forward.
+_REMAT_NAMES = {
+    "nothing": frozenset(),
+    "block_outputs": frozenset({"attn_out", "ffn_out"}),
+    "attn_and_outputs": frozenset({"attn_out", "ffn_out", "q_rope", "k_rope", "v_proj"}),
+}
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _keep_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: str) -> frozenset[str] | None:
+    """Resolve a remat-policy name (the JAX package's four) to the
+    checkpoint names its block keeps; None for ``"dots"``, which keeps every
+    matmul output without batch dims (the projections, not the attention
+    products) through a selective-checkpoint context (`remat`)."""
+    if name == "dots":
+        return None
+    if name not in _REMAT_NAMES:
+        raise ValueError(
+            f"Unknown remat_policy {name!r}; expected 'nothing', 'dots', "
+            "'block_outputs', or 'attn_and_outputs'"
+        )
+    return _REMAT_NAMES[name]
+
+
+def remat(fn: Callable, *args, keep_matmuls: bool = False):
+    """``fn(*args)`` under `torch.utils.checkpoint` (non-reentrant): only
+    ``args`` are kept and the rest is recomputed in the backward, or, with
+    ``keep_matmuls``, every ``mm``/``addmm`` output is kept too. The blocks
+    draw no random numbers, so the RNG state is not stashed."""
+    kwargs = {}
+    if keep_matmuls:
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _keep_matmuls)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 # --------------------------------------------------------------------- norms
@@ -305,6 +354,53 @@ def attention_qkv(
     return _project(x, params["wq"]), _project(x, params["wk"]), _project(x, params["wv"])
 
 
+class _NormProject(torch.autograd.Function):
+    """``_project(rms_norm(x, scale, eps), w)`` for each ``w``, keeping
+    ``x`` instead of the normed ``h``: the backward recomputes the norm."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, *ws):
+        h = rms_norm(x, scale, eps)
+        ctx.save_for_backward(x, scale, *ws)
+        ctx.eps = eps
+        return tuple(_project(h, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, scale, *ws = ctx.saved_tensors
+        need_x, need_scale = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(need_x)
+            sd = scale.detach().requires_grad_(need_scale)
+            h = rms_norm(xd, sd, ctx.eps)
+        h2 = h.detach().reshape(-1, h.shape[-1])
+        dh = torch.zeros_like(h2)
+        dws = []
+        for w, g in zip(ws, grads):
+            w2 = w.reshape(w.shape[0], -1).to(h2.dtype)
+            g2 = g.reshape(h2.shape[0], -1)
+            dws.append((h2.t() @ g2).reshape(w.shape).to(w.dtype))
+            dh += g2 @ w2.t()
+        inputs = [t for t, need in ((xd, need_x), (sd, need_scale)) if need]
+        found = iter(torch.autograd.grad(h, inputs, dh.reshape(h.shape)) if inputs else ())
+        dx = next(found) if need_x else None
+        dscale = next(found) if need_scale else None
+        return (dx, dscale, None, *dws)
+
+
+def normed_qkv(
+    params: Params, x: torch.Tensor, scale: torch.Tensor, eps: float, *, recompute_norm: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`attention_qkv` of ``rms_norm(x, scale, eps)``. With
+    ``recompute_norm`` the backward keeps ``x`` rather than the normed
+    activations and recomputes the norm (the ``attn_and_outputs`` remat,
+    which keeps the projections' outputs: in JAX the norm is all it
+    recomputes of them)."""
+    if not recompute_norm:
+        return attention_qkv(params, rms_norm(x, scale, eps))
+    return _NormProject.apply(x, scale, eps, params["wq"], params["wk"], params["wv"])
+
+
 def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
     wo = params["wo"]
     return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]).to(attn.dtype)
@@ -325,3 +421,26 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     gate = x @ params["w_gate"].to(x.dtype)
     up = x @ params["w_up"].to(x.dtype)
     return (F.silu(gate) * up) @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------- loss
+def cross_entropy_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    mask: torch.Tensor | None = None,
+    z_loss: float = 0.0,
+) -> torch.Tensor:
+    """Token-level cross entropy in fp32 with the optional z-loss term
+    (``z_loss * logsumexp**2``); a ``mask`` averages over its nonzero
+    entries (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
+    losses = logz - label_logits
+    if z_loss > 0.0:
+        losses = losses + z_loss * logz.square()
+    if mask is not None:
+        mask = mask.float()
+        return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    return losses.mean()

@@ -1,6 +1,6 @@
-"""Llama-3-style decoder: parameters, KV cache and the cached forward that
-serving runs (prefill and decode), ported from the JAX package's
-`models/llama.py`.
+"""Llama-3-style decoder: parameters, KV cache, the cached forward that
+serving runs (prefill and decode) and the training forward and loss,
+ported from the JAX package's `models/llama.py`.
 
 Parameters keep the JAX layout — a dict whose ``blocks`` leaves are
 layer-stacked along a leading ``n_layers`` axis — so `models.convert` is a
@@ -8,21 +8,21 @@ checked tree copy. The layer loop is a Python loop over views of those
 stacks (JAX scans).
 
 Left for later slices, and refused here with NotImplementedError: MoE
-blocks, sliding-window attention, host/disk-offloaded weights and
-weight-only int8 parameters. Training (`forward`, `loss_fn`) is the next
-slice's work.
+blocks, sliding-window attention, ring and ulysses attention, the chunked
+LM loss, host/disk-offloaded weights and weight-only int8 parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Mapping
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..utils.environment import resolve_device
+from ..utils.tree import flatten, nest
 from .layers import (
     AttentionSpec,
     RopeScaling,
@@ -32,9 +32,14 @@ from .layers import (
     cache_positions,
     cache_write,
     cached_decode_attention,
+    cross_entropy_loss,
+    dot_product_attention,
     init_attention,
     init_swiglu,
+    normed_qkv,
     quantize_kv,
+    remat,
+    remat_policy,
     rms_norm,
     rope_frequencies,
     swiglu,
@@ -59,6 +64,16 @@ class LlamaConfig:
     # Not ported yet: a non-None window or n_experts > 0 raises.
     sliding_window: int | None = None
     norm_eps: float = 1e-5
+    # Training (the JAX fields): recompute each block in the backward under
+    # `remat_policy` ("nothing" | "dots" | "block_outputs" |
+    # "attn_and_outputs"); attention "dot" (plain) or "flash" (the CUDA
+    # kernels; "ring" / "ulysses" are not ported and raise); z-loss weight.
+    remat: bool = False
+    remat_policy: str = "block_outputs"
+    attention_impl: str = "dot"
+    z_loss: float = 0.0
+    # Not ported yet: a non-None chunk size raises.
+    loss_chunk_size: int | None = None
     n_experts: int = 0
 
     @property
@@ -95,6 +110,15 @@ def _check_supported(config: LlamaConfig) -> None:
         raise NotImplementedError("MoE blocks are not ported yet (n_experts > 0)")
     if config.sliding_window is not None:
         raise NotImplementedError("sliding-window attention is not ported yet")
+    if config.loss_chunk_size is not None:
+        raise NotImplementedError("the chunked LM loss (loss_chunk_size) is not ported yet")
+    if config.attention_impl in ("ring", "ulysses"):
+        raise NotImplementedError(f"attention_impl={config.attention_impl!r} is not ported yet")
+    if config.attention_impl not in ("dot", "flash"):
+        raise ValueError(
+            f"Unknown attention_impl {config.attention_impl!r}; expected "
+            "'dot', 'flash', 'ring', or 'ulysses'"
+        )
 
 
 def param_shapes(config: LlamaConfig) -> dict[str, tuple[int, ...]]:
@@ -118,18 +142,6 @@ def param_shapes(config: LlamaConfig) -> dict[str, tuple[int, ...]]:
         "blocks.mlp.w_down": (L, F, D),
         "lm_head": (D, config.vocab_size),
     }
-
-
-def nest(flat: dict[str, torch.Tensor]) -> Params:
-    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
-    out: Params = {}
-    for key, value in flat.items():
-        node = out
-        *parents, leaf = key.split(".")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = value
-    return out
 
 
 def init_block(generator: torch.Generator, config: LlamaConfig, dtype=torch.float32) -> Params:
@@ -176,24 +188,139 @@ def init(
     return nest(flat)
 
 
-def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
-    """``{"a": {"b": x}}`` -> ``{"a.b": x}`` (the inverse of `nest`)."""
-    out = {}
-    for key, value in tree.items():
-        name = f"{prefix}.{key}" if prefix else key
-        if isinstance(value, Mapping):
-            out.update(flatten(value, name))
-        else:
-            out[name] = value
-    return out
-
-
 @functools.lru_cache(maxsize=8)
 def _rope_tables(config: LlamaConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     cos, sin = rope_frequencies(
         config.resolved_head_dim, config.max_seq_len, config.rope_theta, config.rope_scaling
     )
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+# ----------------------------------------------------------------- training
+def _attention(config: LlamaConfig, q, k, v, mask):
+    if config.attention_impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True, segment_mask=mask)
+    return dot_product_attention(q, k, v, mask=mask, causal=True)
+
+
+def block_forward(
+    block: Params,
+    x: torch.Tensor,
+    *,
+    config: LlamaConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    positions: torch.Tensor,
+    mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """One decoder block. With ``config.remat`` the block recomputes in the
+    backward what its `remat_policy` does not keep: it runs as checkpointed
+    segments cut after the kept names (``q_rope``/``k_rope``/``v_proj``,
+    ``attn_out``, ``ffn_out``), or, for ``"dots"``, as one segment that
+    keeps every projection output. Keeping ``q_rope``/``k_rope``/``v_proj``
+    leaves the q/k/v projections out of the recompute and only the norm
+    before them in it (`layers.normed_qkv`), as in JAX. The flash forward
+    kernel re-runs in the backward under every policy (its lse is internal
+    to the autograd function, as it is to JAX's custom VJP)."""
+
+    def qkv(x, recompute_norm=False):
+        q, k, v = normed_qkv(
+            block["attn"], x, block["attn_norm"], config.norm_eps, recompute_norm=recompute_norm
+        )
+        return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
+
+    def attn_out(q, k, v):
+        return attention_out(block["attn"], _attention(config, q, k, v, mask))
+
+    def attn_branch(x):
+        return attn_out(*qkv(x))
+
+    def ffn_out(x):
+        return swiglu(block["mlp"], rms_norm(x, block["mlp_norm"], config.norm_eps))
+
+    def whole(x):
+        x = x + attn_branch(x)
+        return x + ffn_out(x)
+
+    if not config.remat:
+        return whole(x)
+    keep = remat_policy(config.remat_policy)
+    if keep is None:
+        return remat(whole, x, keep_matmuls=True)
+    if not keep:
+        return remat(whole, x)
+    if "q_rope" in keep:
+        x = x + remat(attn_out, *qkv(x, recompute_norm=True))
+    else:
+        x = x + remat(attn_branch, x)
+    return x + remat(ffn_out, x)
+
+
+def _unstack(tree: Params, n: int) -> list[Params]:
+    """The layer-stacked block params as ``n`` per-layer trees of views, one
+    ``unbind`` per leaf (its backward stacks the layers' gradients once,
+    where indexing would add a zero-filled full-size gradient per layer)."""
+    out: list[Params] = [{} for _ in range(n)]
+    for key, value in tree.items():
+        parts = _unstack(value, n) if isinstance(value, dict) else value.unbind(0)
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    *,
+    positions: torch.Tensor | None = None,
+    mask: torch.Tensor | None = None,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, vocab) in the params' dtype, or with
+    ``return_hidden`` the final-norm hidden states (B, S, D). ``mask`` is a
+    (B, S) padding or (B, S, S) attention mask (it routes flash attention to
+    the plain attention, as in JAX)."""
+    _check_supported(config)
+    B, S = tokens.shape
+    if S > config.max_seq_len:
+        raise ValueError(f"sequence length {S} exceeds max_seq_len={config.max_seq_len}")
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    cos, sin = _rope_tables(config, tokens.device)
+    x = params["embed"][tokens]
+    for block in _unstack(params["blocks"], config.n_layers):
+        x = block_forward(block, x, config=config, cos=cos, sin=sin, positions=positions, mask=mask)
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    if return_hidden:
+        return x
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def loss_fn(
+    params: Params,
+    batch: dict[str, torch.Tensor],
+    config: LlamaConfig,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Next-token prediction loss (fp32 scalar). batch: {"input_ids": (B, S)}
+    with optional "labels" (already shifted) and "attention_mask". Without
+    labels the forward runs at the full S and the last logit is dropped, as
+    in JAX. ``generator`` is the step's per-microbatch generator (unused:
+    the model draws no random numbers)."""
+    tokens = batch["input_ids"]
+    labels = batch.get("labels")
+    attn_mask = batch.get("attention_mask")
+    logits = forward(params, tokens, config, mask=attn_mask)
+    if labels is None:
+        labels = tokens[:, 1:]
+        loss_mask = attn_mask[:, 1:] if attn_mask is not None else None
+        logits = logits[:, :-1]
+    else:
+        loss_mask = attn_mask
+    return cross_entropy_loss(logits, labels, mask=loss_mask, z_loss=config.z_loss)
 
 
 # ---------------------------------------------------------------- KV cache

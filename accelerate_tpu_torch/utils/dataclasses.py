@@ -1,0 +1,72 @@
+"""The subset of the JAX package's `utils/dataclasses.py` that the train
+step reads: the precision names, the mixed-precision policy and the
+gradient-accumulation plugin.
+
+fp16 (which needs the dynamic loss scale) and fp8 (scaled matmuls) are not
+ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+
+class PrecisionType(str, enum.Enum):
+    NO = "no"
+    BF16 = "bf16"
+    FP16 = "fp16"
+    FP8 = "fp8"
+
+
+_DTYPES = {PrecisionType.NO: torch.float32, PrecisionType.BF16: torch.bfloat16}
+
+
+@dataclass
+class MixedPrecisionPolicy:
+    """Dtype policy: master params as initialized (fp32), compute in
+    ``compute_dtype``.
+
+    ``param_dtype`` (None keeps the init dtype) is read by
+    `Accelerator.create_train_state`, ``output_dtype`` by the train step's
+    reported loss."""
+
+    param_dtype: Any = None
+    compute_dtype: Any = torch.float32
+    output_dtype: Any = None
+
+    @classmethod
+    def from_precision(cls, precision: str | PrecisionType) -> "MixedPrecisionPolicy":
+        precision = PrecisionType(precision)
+        if precision not in _DTYPES:
+            raise NotImplementedError(
+                f"mixed_precision={precision.value!r} is not ported yet "
+                "(fp16 needs the dynamic loss scale, fp8 the scaled matmuls)"
+            )
+        return cls(compute_dtype=_DTYPES[precision])
+
+    def cast_for_compute(self, tree: Any) -> Any:
+        """Floating tensors of a (nested dict / list / tuple) tree cast to
+        ``compute_dtype``; autograd flows through the cast, so gradients
+        reach the fp32 masters in fp32. Other leaves pass through."""
+        if isinstance(tree, dict):
+            return {k: self.cast_for_compute(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.cast_for_compute(v) for v in tree)
+        if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+            return tree.to(self.compute_dtype)
+        return tree
+
+
+@dataclass
+class GradientAccumulationPlugin:
+    """Microbatches per optimizer step."""
+
+    num_steps: int = 1
+
+    def __post_init__(self) -> None:
+        if self.num_steps < 1:
+            raise ValueError(f"gradient accumulation steps must be >= 1, got {self.num_steps}")

@@ -1,5 +1,5 @@
 """The port stands alone: no module of `accelerate_tpu_torch`, nor
-`chip_smoke.py` or `perf/torch_serve_profile.py`, imports JAX or the JAX
+`chip_smoke.py` or the `perf/torch_*.py` scripts, imports JAX or the JAX
 package, and every entry point defaults to the card and refuses to fall
 back to the CPU on its own."""
 
@@ -12,9 +12,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from accelerate_tpu_torch import resolve_device
+from accelerate_tpu_torch import optim, resolve_device
+from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.models import llama
 from accelerate_tpu_torch.models.convert import params_from_jax
+from accelerate_tpu_torch.ops.flash_attention import flash_attention
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "accelerate_tpu_torch"
@@ -22,7 +24,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
 
 
 def _sources():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "perf" / "torch_serve_profile.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "perf" / "torch_serve_profile.py",
+               ROOT / "perf" / "torch_train_profile.py"]
     return sorted(PKG.rglob("*.py")) + scripts
 
 
@@ -52,7 +55,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
-        f"for name in {_module_names()!r} + ['chip_smoke']:\n"
+        f"for name in {_module_names()!r} + ['chip_smoke', 'perf.torch_serve_profile', 'perf.torch_train_profile']:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -83,9 +86,21 @@ class TestDeviceDefaults:
             lambda: llama.init(llama.LlamaConfig.tiny()),
             lambda: llama.init_cache(llama.LlamaConfig.tiny(), 1, 8),
             lambda: params_from_jax({}, llama.LlamaConfig.tiny()),
+            lambda: Accelerator(mixed_precision="bf16"),
         ],
-        ids=["init", "init_cache", "params_from_jax"],
+        ids=["init", "init_cache", "params_from_jax", "accelerator"],
     )
     def test_entry_points_default_to_cuda(self, no_cuda, entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
+
+    def test_tensor_entry_points_follow_their_operands(self, no_cuda):
+        """`ops.flash_attention` and `optim.adamw` take no device: they run
+        where their tensors are, and a CPU tensor is never moved."""
+        q = torch.zeros(1, 32, 2, 16)
+        assert flash_attention(q, q, q).device.type == "cpu"
+        p = torch.zeros(2, requires_grad=True)
+        opt = optim.adamw(1e-3).init([p])
+        p.grad = torch.ones(2)
+        opt.step()
+        assert p.device.type == "cpu"

@@ -208,3 +208,77 @@ class TestParamsAndConfig:
         np_params["embed"] = np_params["embed"][:10]
         with pytest.raises(ValueError, match="shape"):
             params_from_jax(np_params, CFG_T, device="cpu")
+
+
+class TestTraining:
+    """`forward` and `loss_fn` (the training path) against the JAX
+    package's, fp32 at `LlamaConfig.tiny`: loss 1e-5, logits and gradients
+    1e-4 (two layers of fp32 sums in another order; the flash path runs
+    the JAX Pallas kernels in interpret mode against the port's plain
+    versions of its CUDA kernels)."""
+
+    @pytest.fixture(autouse=True)
+    def _autotune_dir(self, tmp_path, monkeypatch):
+        # The JAX flash entry point banks its block choice in this table.
+        monkeypatch.setenv("ATX_AUTOTUNE_DIR", str(tmp_path))
+
+    @staticmethod
+    def _leaves(weights):
+        np_params = jax.tree.map(np.asarray, weights[0])
+        flat = tllama.flatten(params_from_jax(np_params, CFG_T, device="cpu"))
+        return tllama.nest({k: v.requires_grad_() for k, v in flat.items()})
+
+    @pytest.mark.parametrize("impl", ["dot", "flash"])
+    def test_loss_and_gradients_match_jax(self, weights, impl):
+        jcfg = jllama.LlamaConfig.tiny(attention_impl=impl)
+        tcfg = tllama.LlamaConfig.tiny(attention_impl=impl)
+        tokens = _tokens(2, 32, seed=4)
+        grad_fn = jax.jit(jax.value_and_grad(lambda p, t: jllama.loss_fn(p, {"input_ids": t}, jcfg)))
+        jloss, jgrads = grad_fn(weights[0], jnp.asarray(tokens))
+        params = self._leaves(weights)
+        loss = tllama.loss_fn(params, {"input_ids": torch.from_numpy(tokens)}, tcfg)
+        loss.backward()
+        assert loss.item() == pytest.approx(float(jloss), rel=1e-5)
+        for key, want in tllama.flatten(jgrads).items():
+            got = tllama.flatten(params)[key].grad
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4, err_msg=key)
+
+    @pytest.mark.parametrize("impl", ["dot", "flash"])
+    def test_forward_logits_match_jax(self, weights, impl):
+        tokens = _tokens(2, 24, seed=6)
+        want = jllama.forward(weights[0], jnp.asarray(tokens), jllama.LlamaConfig.tiny(attention_impl=impl))
+        got = tllama.forward(weights[1], torch.from_numpy(tokens), tllama.LlamaConfig.tiny(attention_impl=impl))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+        hidden = tllama.forward(weights[1], torch.from_numpy(tokens), CFG_T, return_hidden=True)
+        assert hidden.shape == (2, 24, CFG_T.d_model)
+
+    def test_masked_batch_with_labels_and_z_loss(self, weights):
+        """An attention mask routes flash to the plain attention (as in
+        JAX) and masks the loss; explicit labels are not shifted."""
+        tokens = _tokens(2, 20, seed=7)
+        labels = _tokens(2, 20, seed=8)
+        mask = np.ones((2, 20), np.int32)
+        mask[1, 14:] = 0
+        batch = {"input_ids": tokens, "labels": labels, "attention_mask": mask}
+        jcfg = jllama.LlamaConfig.tiny(attention_impl="flash", z_loss=1e-3)
+        tcfg = tllama.LlamaConfig.tiny(attention_impl="flash", z_loss=1e-3)
+        want = jax.jit(jllama.loss_fn, static_argnums=2)(
+            weights[0], {k: jnp.asarray(v) for k, v in batch.items()}, jcfg
+        )
+        got = tllama.loss_fn(weights[1], {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+        assert got.item() == pytest.approx(float(want), rel=1e-5)
+
+    def test_training_fields_match_jax_defaults(self):
+        fields = ("remat", "remat_policy", "attention_impl", "z_loss", "loss_chunk_size")
+        j, t = jllama.LlamaConfig(), tllama.LlamaConfig()
+        assert {f: getattr(t, f) for f in fields} == {f: getattr(j, f) for f in fields}
+
+    @pytest.mark.parametrize(
+        "field,error",
+        [({"loss_chunk_size": 8}, NotImplementedError), ({"attention_impl": "ring"}, NotImplementedError),
+         ({"attention_impl": "ulysses"}, NotImplementedError), ({"attention_impl": "sparse"}, ValueError)],
+        ids=["chunked-loss", "ring", "ulysses", "unknown"],
+    )
+    def test_unported_training_options_raise(self, weights, field, error):
+        with pytest.raises(error):
+            tllama.forward(weights[1], torch.zeros(1, 16, dtype=torch.int64), tllama.LlamaConfig.tiny(**field))
