@@ -11,6 +11,9 @@ neither it nor JAX. It ports the framework slice by slice:
 - `accelerator`, `optim`, `utils.dataclasses`: the single-device train
   step (mixed precision, accumulation, clipping, AdamW);
 - `ops.flash_attention`: flash attention with its autograd backward;
+- `ops.fp8`, `ops.int8`, `utils.quantization`: fp8 training matmuls
+  (`mixed_precision="fp8"`), weight-only int8 / int4 trees and int8
+  products on them (`int8_compute`);
 - `native`: hand-written CUDA kernels (built with ``nvcc`` at first use)
   and the plain PyTorch version beside each one.
 

@@ -12,6 +12,10 @@ runs eagerly, so there is no compile step; the update is in place (the JAX
 step donates its state), and the returned state shares its params and
 optimizer with the one passed in.
 
+Under ``mixed_precision="fp8"`` the step runs the loss and its backward
+inside `ops.fp8.fp8_matmuls`, and warns when no projection reached
+`matmul_einsum` (the JAX `_warn_fp8_noop`).
+
 Not ported yet, and absent from the signatures rather than ignored: the
 mesh and sharding strategies, host and disk offload, the fp16 loss scale,
 the non-finite guard, telemetry and the lint.
@@ -20,11 +24,13 @@ the non-finite guard, telemetry and the lint.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from .ops.fp8 import fp8_hits, fp8_matmuls
 from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
 from .utils.environment import resolve_device
 from .utils.tree import flatten, map_tree
@@ -49,6 +55,16 @@ class TrainState:
 
     def leaves(self) -> list[torch.Tensor]:
         return list(flatten(self.params).values())
+
+
+def _warn_fp8_noop() -> None:
+    warnings.warn(
+        "mixed_precision='fp8' had no effect: the loss_fn never routed a matmul "
+        "through accelerate_tpu_torch.ops.fp8.matmul_einsum, so the whole step ran "
+        "in bf16. Use the port's model layers (or call matmul_einsum for your "
+        "projections) to get fp8 matmuls.",
+        stacklevel=3,
+    )
 
 
 def _microbatch_seed(seed: int, step: int, index: int) -> int:
@@ -119,9 +135,14 @@ class Accelerator:
             for index, mb in enumerate(microbatches):
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(_microbatch_seed(self.seed, state.step, index))
-                out = loss_fn(policy.cast_for_compute(state.params), policy.cast_for_compute(mb), gen)
-                loss = (out[0] if has_aux else out).float()
-                loss.backward()
+                # The backward runs inside the mode too (JAX reads it at
+                # trace time, which covers the backward and the remat).
+                with fp8_matmuls(policy.fp8):
+                    out = loss_fn(policy.cast_for_compute(state.params), policy.cast_for_compute(mb), gen)
+                    if policy.fp8 and fp8_hits() == 0:
+                        _warn_fp8_noop()
+                    loss = (out[0] if has_aux else out).float()
+                    loss.backward()
                 loss_sum += loss.detach()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
             if accum > 1:

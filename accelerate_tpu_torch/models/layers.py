@@ -14,6 +14,12 @@ tensor: `cache_write`, `cache_write_stacked`, `cache_slot_write` and
 `cache_slot_view` returns views, so a forward over a slot view writes
 straight into the slot pool.
 
+Every projection (`attention_qkv`, `normed_qkv`, `attention_out`,
+`swiglu`) routes through `ops.fp8.matmul_einsum` under the fp8 mode or for
+a quantized weight node, as the JAX layers do. Outside both it stays the
+one ``x @ w`` it was, with no einsum parsing (the serving loop is
+host-bound, so host work per projection counts).
+
 Conventions: ``B`` batch, ``S`` sequence, ``D`` model dim, ``H`` heads,
 ``K`` kv-heads, ``h`` head dim, ``F`` ff dim, ``L`` layers.
 """
@@ -35,6 +41,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..native.decode_attention import flash_decode
+from ..native.quant_matmul import scaled_matmul
+from ..ops.fp8 import E4M3, E5M2, _grad_equations, count_hit, fp8_enabled, fp8_mode, matmul_einsum, quantize
 
 Params = dict[str, Any]
 _NEG_INF = -1e30
@@ -85,12 +93,30 @@ def remat_policy(name: str) -> frozenset[str] | None:
     return _REMAT_NAMES[name]
 
 
+def _in_fp8_mode(fn: Callable, *args):
+    with fp8_mode(True):
+        return fn(*args)
+
+
 def remat(fn: Callable, *args, keep_matmuls: bool = False):
     """``fn(*args)`` under `torch.utils.checkpoint` (non-reentrant): only
     ``args`` are kept and the rest is recomputed in the backward, or, with
     ``keep_matmuls``, every ``mm``/``addmm`` output is kept too. The blocks
-    draw no random numbers, so the RNG state is not stashed."""
+    draw no random numbers, so the RNG state is not stashed.
+
+    Under fp8 the recompute re-enters the fp8 mode, whenever the backward
+    runs: it must repeat the forward's fp8 products, not bf16 ones. The fp8
+    products are opaque kernel calls that ``keep_matmuls`` cannot keep, so
+    fp8 with the "dots" policy raises."""
     kwargs = {}
+    if fp8_enabled():
+        if keep_matmuls:
+            raise NotImplementedError(
+                "remat_policy='dots' keeps mm/addmm outputs, and the fp8 products are "
+                "kernel calls it does not see; use 'attn_and_outputs', 'block_outputs' "
+                "or 'nothing' under mixed_precision='fp8'"
+            )
+        fn = functools.partial(_in_fp8_mode, fn)
     if keep_matmuls:
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _keep_matmuls)
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
@@ -342,8 +368,19 @@ def init_attention(
     }
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _routed(w) -> bool:
+    """Does this projection go through `matmul_einsum` (fp8 mode, or a
+    quantized node) rather than the plain ``x @ w``?"""
+    return fp8_enabled() or not isinstance(w, torch.Tensor)
+
+
+_QKV_EQ = "bsd,dhk->bshk"
+
+
+def _project(x: torch.Tensor, w) -> torch.Tensor:
     """(B, S, D) x (D, N, h) -> (B, S, N, h) as one matmul."""
+    if _routed(w):
+        return matmul_einsum(_QKV_EQ, x, w)
     out = x @ w.reshape(w.shape[0], -1).to(x.dtype)
     return out.view(*x.shape[:-1], *w.shape[1:])
 
@@ -356,14 +393,29 @@ def attention_qkv(
 
 class _NormProject(torch.autograd.Function):
     """``_project(rms_norm(x, scale, eps), w)`` for each ``w``, keeping
-    ``x`` instead of the normed ``h``: the backward recomputes the norm."""
+    ``x`` instead of the normed ``h``: the backward recomputes the norm.
+
+    Under fp8 (read when the forward runs) the products are `fp8_einsum`'s:
+    the forward quantizes h once and each w (in h's dtype) to e4m3 and
+    keeps the quantized weights; the backward re-quantizes the recomputed h
+    (the same values), quantizes each cotangent to e5m2 and runs the fp8 dx
+    and dw products, as JAX's custom VJP does for each projection."""
 
     @staticmethod
     def forward(ctx, x, scale, eps, *ws):
         h = rms_norm(x, scale, eps)
-        ctx.save_for_backward(x, scale, *ws)
-        ctx.eps = eps
-        return tuple(_project(h, w) for w in ws)
+        ctx.eps, ctx.fp8, ctx.w_dtypes = eps, fp8_enabled(), [w.dtype for w in ws]
+        if not ctx.fp8:
+            ctx.save_for_backward(x, scale, *ws)
+            return tuple(_project(h, w) for w in ws)
+        qh, sh = quantize(h, E4M3)
+        qws = [quantize(w.to(h.dtype), E4M3) for w in ws]
+        ctx.save_for_backward(x, scale, *(t for qw in qws for t in qw))
+        outs = []
+        for qw, sw in qws:
+            count_hit()
+            outs.append(scaled_matmul(_QKV_EQ, qh, qw, sh * sw, h.dtype))
+        return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -373,19 +425,41 @@ class _NormProject(torch.autograd.Function):
             xd = x.detach().requires_grad_(need_x)
             sd = scale.detach().requires_grad_(need_scale)
             h = rms_norm(xd, sd, ctx.eps)
-        h2 = h.detach().reshape(-1, h.shape[-1])
-        dh = torch.zeros_like(h2)
-        dws = []
-        for w, g in zip(ws, grads):
-            w2 = w.reshape(w.shape[0], -1).to(h2.dtype)
-            g2 = g.reshape(h2.shape[0], -1)
-            dws.append((h2.t() @ g2).reshape(w.shape).to(w.dtype))
-            dh += g2 @ w2.t()
+        if ctx.fp8:
+            dh, dws = _norm_project_fp8_grads(h.detach(), ws, grads, ctx.w_dtypes)
+        else:
+            dh, dws = _norm_project_grads(h.detach(), ws, grads)
         inputs = [t for t, need in ((xd, need_x), (sd, need_scale)) if need]
         found = iter(torch.autograd.grad(h, inputs, dh.reshape(h.shape)) if inputs else ())
         dx = next(found) if need_x else None
         dscale = next(found) if need_scale else None
         return (dx, dscale, None, *dws)
+
+
+def _norm_project_grads(h, ws, grads):
+    h2 = h.reshape(-1, h.shape[-1])
+    dh = torch.zeros_like(h2)
+    dws = []
+    for w, g in zip(ws, grads):
+        w2 = w.reshape(w.shape[0], -1).to(h2.dtype)
+        g2 = g.reshape(h2.shape[0], -1)
+        dws.append((h2.t() @ g2).reshape(w.shape).to(w.dtype))
+        dh += g2 @ w2.t()
+    return dh, dws
+
+
+def _norm_project_fp8_grads(h, qws, grads, w_dtypes):
+    """dh and the dws of `_NormProject` under fp8 (``qws`` alternates the
+    saved e4m3 weights and their scales)."""
+    dx_eq, dw_eq = _grad_equations(_QKV_EQ)
+    qh, sh = quantize(h, E4M3)
+    dh, dws = None, []
+    for qw, sw, g, w_dtype in zip(qws[0::2], qws[1::2], grads, w_dtypes):
+        qg, sg = quantize(g.contiguous(), E5M2)
+        d = scaled_matmul(dx_eq, qg, qw, sg * sw, h.dtype)
+        dh = d if dh is None else dh + d
+        dws.append(scaled_matmul(dw_eq, qh, qg, sh * sg, w_dtype))
+    return dh, dws
 
 
 def normed_qkv(
@@ -395,14 +469,17 @@ def normed_qkv(
     ``recompute_norm`` the backward keeps ``x`` rather than the normed
     activations and recomputes the norm (the ``attn_and_outputs`` remat,
     which keeps the projections' outputs: in JAX the norm is all it
-    recomputes of them)."""
-    if not recompute_norm:
+    recomputes of them). Quantized weight nodes (inference) take the plain
+    path."""
+    if not recompute_norm or not isinstance(params["wq"], torch.Tensor):
         return attention_qkv(params, rms_norm(x, scale, eps))
     return _NormProject.apply(x, scale, eps, params["wq"], params["wk"], params["wv"])
 
 
 def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
     wo = params["wo"]
+    if _routed(wo):
+        return matmul_einsum("bshk,hkd->bsd", attn, wo)
     return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]).to(attn.dtype)
 
 
@@ -418,6 +495,10 @@ def init_swiglu(
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    if _routed(params["w_gate"]):
+        gate = matmul_einsum("bsd,df->bsf", x, params["w_gate"])
+        up = matmul_einsum("bsd,df->bsf", x, params["w_up"])
+        return matmul_einsum("bsf,fd->bsd", F.silu(gate) * up, params["w_down"])
     gate = x @ params["w_gate"].to(x.dtype)
     up = x @ params["w_up"].to(x.dtype)
     return (F.silu(gate) * up) @ params["w_down"].to(x.dtype)

@@ -7,9 +7,17 @@ layer-stacked along a leading ``n_layers`` axis — so `models.convert` is a
 checked tree copy. The layer loop is a Python loop over views of those
 stacks (JAX scans).
 
+Weight-only int8 / int4 parameters (a tree from
+`utils.quantization.quantize_pytree`) run through `forward`,
+`forward_with_cache` and `generate`: each layer's quantized nodes are
+dequantized to the compute dtype as the layer runs (`_maybe_dequantize`),
+or, inside `ops.int8.int8_compute`, passed untouched to the projections,
+which contract them through the int8 kernel. ``embed`` and ``lm_head`` stay
+full precision; the head is a plain matmul.
+
 Left for later slices, and refused here with NotImplementedError: MoE
 blocks, sliding-window attention, ring and ulysses attention, the chunked
-LM loss, host/disk-offloaded weights and weight-only int8 parameters.
+LM loss and host/disk-offloaded weights.
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.int8 import int8_compute_enabled
 from ..utils.environment import resolve_device
+from ..utils.quantization import dequantize_pytree, has_quantized
 from ..utils.tree import flatten, nest
 from .layers import (
     AttentionSpec,
@@ -270,6 +280,16 @@ def _unstack(tree: Params, n: int) -> list[Params]:
     return out
 
 
+def _maybe_dequantize(block: Params, dtype: torch.dtype) -> Params:
+    """One layer's quantized nodes dequantized to ``dtype``, so the device
+    holds int8 and the products see the compute dtype; inside
+    `ops.int8.int8_compute` the nodes pass through untouched (the
+    projections contract them through the int8 kernel)."""
+    if int8_compute_enabled():
+        return block
+    return dequantize_pytree(block, dtype)
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -291,7 +311,10 @@ def forward(
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = _rope_tables(config, tokens.device)
     x = params["embed"][tokens]
+    quantized = has_quantized(params["blocks"])
     for block in _unstack(params["blocks"], config.n_layers):
+        if quantized:
+            block = _maybe_dequantize(block, x.dtype)
         x = block_forward(block, x, config=config, cos=cos, sin=sin, positions=positions, mask=mask)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     if return_hidden:
@@ -394,8 +417,11 @@ def forward_with_cache(
 
     x = params["embed"][tokens]
     blocks = params["blocks"]
+    quantized = has_quantized(blocks)
     for i in range(config.n_layers):
         block = _layer(blocks, i)
+        if quantized:
+            block = _maybe_dequantize(block, x.dtype)
         h = rms_norm(x, block["attn_norm"], config.norm_eps)
         q, k, v = attention_qkv(block["attn"], h)
         q = apply_rope(q, cos, sin, positions)

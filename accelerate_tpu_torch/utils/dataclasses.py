@@ -2,8 +2,9 @@
 step reads: the precision names, the mixed-precision policy and the
 gradient-accumulation plugin.
 
-fp16 (which needs the dynamic loss scale) and fp8 (scaled matmuls) are not
-ported yet and raise NotImplementedError.
+fp8 computes in bf16 and routes every projection through the scaled fp8
+products (`ops.fp8`), as in JAX. fp16, which needs the dynamic loss scale,
+is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,14 +38,20 @@ class MixedPrecisionPolicy:
     param_dtype: Any = None
     compute_dtype: Any = torch.float32
     output_dtype: Any = None
+    # fp8 is not a blanket cast: activations and params stay bf16 at call
+    # boundaries and the train step routes the projections through the
+    # dynamically scaled e4m3/e5m2 products (`ops.fp8.fp8_matmuls`).
+    fp8: bool = False
 
     @classmethod
     def from_precision(cls, precision: str | PrecisionType) -> "MixedPrecisionPolicy":
         precision = PrecisionType(precision)
+        if precision == PrecisionType.FP8:
+            return cls(compute_dtype=torch.bfloat16, fp8=True)
         if precision not in _DTYPES:
             raise NotImplementedError(
                 f"mixed_precision={precision.value!r} is not ported yet "
-                "(fp16 needs the dynamic loss scale, fp8 the scaled matmuls)"
+                "(fp16 needs the dynamic loss scale)"
             )
         return cls(compute_dtype=_DTYPES[precision])
 

@@ -21,20 +21,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    forward kernel's own o and lse against the plain forward and backward;
    prints each kernel's error, its, the plain version's and SDPA's device
    time (CUDA events), and the bound;
-4. serve: Llama-3-8B at full width and depth with random bf16 weights from
+4. quant kernel: the int8 kernel against its plain version at the int8
+   prefill's products (M 2048; q/o with the per-h weight scale, k/v,
+   gate/up, down), with int4-range weights and with ragged M (37) and
+   ragged fp32 operands, to one ulp of x's dtype; the fp8 kernel at the
+   fp8 train step's products (M 4096) in its three orientations and type
+   pairs (forward e4m3.e4m3, dx e5m2.e4m3, dw e4m3.e5m2), the fourth
+   orientation and ragged edges, within fp32 reordering plus one output
+   rounding; device times of the kernel, the plain version and
+   `torch._int_mm` / `torch._scaled_mm`, and the bound;
+5. serve: Llama-3-8B at full width and depth with random bf16 weights from
    --seed behind `serving.Engine` (8 slots, buckets 32..256, max_len 512,
    greedy), replaying a Poisson trace in real time; every request must
    complete, flash-decode must have launched exactly 32 times per decode
    step, and one decode step's logits with the kernel must agree with the
    plain attention's; then the same with an int8 KV cache;
-5. train: Llama-3-8B width cut to 8 layers (fp32 masters, bf16 compute,
+6. int8 prefill: the same weights through `quantize_pytree` (int8), a
+   (4, 512) `forward` under `int8_compute` with exactly 224 int8_matmul
+   launches, its logits against the dequantize path's (argmax agreement,
+   logit drift), forward times beside the dequantize path's and the bf16
+   weights', the weight bytes; then 16 greedy tokens from the quantized
+   tree through flash-decode (32 launches a decode step);
+7. train: Llama-3-8B width cut to 8 layers (fp32 masters, bf16 compute,
    remat "attn_and_outputs", flash attention) through `Accelerator`
    (AdamW 3e-4, max_grad_norm 1.0) on one random (2, 2048) batch from
    --seed: one warm-up and three timed steps with finite, falling loss and
    16 / 8 / 8 fwd / dq / dkv launches per step; then, at 2 layers, one
    step's loss and gradients under flash against the plain attention;
-6. a {"kernels": [...]} line;
-7. last line: {"ok": true, "device": {...}}.
+8. fp8 train: the same with mixed_precision="fp8", 200 fp8_matmul
+   launches a step besides the flash ones, the bf16 step's numbers beside
+   it; then, at 2 layers, one fp8 step's loss and grad norm against bf16's;
+9. a {"kernels": [...]} line with the six hand-written kernels;
+10. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device, and without the package beside it.
 """
@@ -54,6 +72,7 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
+FP8_FLOPS = 1979e12  # H100 SXM, dense tensor cores; int8 TOP/s the same
 DECODE_SHAPE = dict(B=8, K=8, group=4, h=128)
 SERVE_BUCKETS = (32, 64, 128, 256)
 SERVE_MAX_LEN = 512
@@ -102,6 +121,55 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 3
 # H100 (seed 0): |dloss| 1.6e-4, grad-norm 7.7e-7 relative, worst leaf
 # 8.9e-3 relative; the limits leave 2-100x of room.
 FLASH_VS_DOT = {"loss": 2e-3, "grad_norm_rel": 1e-4, "leaf_rel": 2e-2}
+# Quantized kernels against their plain versions (the quant_kernel phase):
+# (name, M rows as (B, S), C, N, weight view). The int8 cases are the
+# prefill's products at M 2048 (a (4, 512) batch): q/o (4096, 4096, per-h
+# weight scale of the stacked wq), k/v (4096, 1024), gate/up (4096, 14336),
+# down (14336, 4096); an int4-range weight from `_unpack_int4`; a ragged M
+# of 37 (and a ragged fp32 case through the byte-wise loads). The fp8 cases
+# are the train step's products at M 4096 (2 x 2048) in the three
+# orientations the path uses (forward e4m3.e4m3 "trail x lead", dx
+# e5m2.e4m3 "trail x trail", dw e4m3.e5m2 "lead x lead"), plus the fourth
+# orientation and ragged edges.
+INT8_CASES = (
+    ("qo", (4, 512), 4096, 4096, "heads"),
+    ("kv", (4, 512), 4096, 1024, "heads"),
+    ("gate_up", (4, 512), 4096, 14336, "dense"),
+    ("down", (4, 512), 14336, 4096, "dense"),
+    ("int4", (4, 512), 4096, 4096, "int4"),
+    ("ragged_m37", (1, 37), 4096, 1024, "dense"),
+    ("ragged_fp32", (1, 37), 1000, 998, "fp32"),
+)
+FP8_SHAPES = (("qo", 4096, 4096), ("kv", 4096, 1024), ("gate_up", 4096, 14336), ("down", 14336, 4096))
+FP8_TRAIN_ROWS = (2, 2048)
+# int8: integer accumulation is exact and the kernel repeats the plain
+# version's roundings (IEEE division, half-even rint, float(acc) * (sx *
+# ws)), so the two agree to one ulp of x's dtype relative to max|out|.
+# fp8: the exact fp8 products are summed in fp32 in another order (at most
+# gamma_C = C u / (1 - C u), u = 2^-24, times sum |a b| * scale), and the
+# bf16 output may round to a neighbouring value (one ulp, <= 2^-7 |out|;
+# 2^-23 for fp32): |kernel - plain| <= ulp_rel * |plain| + 2 gamma_C * bound.
+FP8_ULP_REL = {"bf16": 2.0**-7, "fp32": 2.0**-23}
+# int8 prefill: Llama-3-8B, full width and depth, a (4, 512) prompt batch.
+# Both paths use the same int8 weights; only the per-row int8 rounding of
+# the activations (1/127 of each row's max, ~0.2 % rms a product) is new,
+# and it adds up over 32 layers. A wrong scale, layout or rounding moves
+# the logits by their own size (drift ~1, argmax agreement ~0).
+PREFILL_BATCH, PREFILL_NEW_TOKENS = (4, 512), 16
+INT8_VS_DEQUANT = {"rms_drift": 0.1, "argmax_agree": 0.5}
+# fp8 train step: the bf16 train configuration with mixed_precision="fp8".
+# fp8_matmul launches a step: 7 forward products a layer, 14 backward (dx
+# and dw), and the forward products of the segments "attn_and_outputs"
+# recomputes (the output projection, and gate, up and down; q/k/v are kept):
+# 25 a layer, 200 at 8 layers.
+FP8_LAUNCHES_PER_LAYER = 7 + 14 + 4
+# One step at 2 layers, fp8 against bf16 on the same params and batch: e4m3
+# keeps 3 mantissa bits and e5m2 2 (rounding up to 6 % and 12.5 % an
+# element, a few % rms), averaged over the thousands of terms of every
+# product; the loss of the random model near its uniform start moves far
+# less. A dropped scale or a wrong operand moves both by orders of
+# magnitude.
+FP8_VS_BF16 = {"loss_rel": 1e-2, "grad_norm_ratio": (0.9, 1.1)}
 
 
 def fail(msg: str) -> None:
@@ -447,11 +515,154 @@ def flash_kernel_phase(torch, fa, case, seed: int) -> dict:
     return row
 
 
-def train_setup(torch, llama, cfg, seed: int):
+def _eps(torch, dtype) -> float:
+    return torch.finfo(dtype).eps
+
+
+def int8_kernel_case(torch, qm, int8_ops, case, seed: int) -> dict:
+    """One int8 product, kernel against plain version, with times."""
+    name, rows, C, N, kind = case
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    x = torch.randn(*rows, C, generator=gen, device=DEVICE).to(dt)
+    if kind == "heads":  # a per-layer wq / wk node: (D, heads, 128), scale (1, 1, 128)
+        w_shape, s_shape, eq = (C, N // 128, 128), (1, 1, 128), "bsd,dhk->bshk"
+    else:
+        w_shape, s_shape, eq = (C, N), (1, N), "bsd,df->bsf"
+    if kind == "int4":
+        packed = torch.randint(0, 256, (C, N // 2), generator=gen, device=DEVICE, dtype=torch.int32)
+        wq = int8_ops._unpack_int4(packed.to(torch.uint8))
+        wq = torch.where(wq == -8, torch.zeros_like(wq), wq)  # quantize_array packs [-7, 7]
+    else:
+        wq = torch.randint(-127, 128, w_shape, generator=gen, device=DEVICE, dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(s_shape, generator=gen, device=DEVICE) * 1e-2 + 1e-3
+    out = qm.int8_matmul(eq, x, wq, ws)
+    torch.cuda.synchronize()
+    ref = qm.int8_matmul_reference(eq, x, wq, ws)
+    tol = _eps(torch, dt) * ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.shape != ref.shape or not torch.isfinite(out).all() or err > tol:
+        fail(f"int8_matmul {name}: max |kernel - plain| {err} over {tol}")
+    M = x.numel() // C
+    kernel_ms = event_ms(torch, lambda: qm.int8_matmul(eq, x, wq, ws), 10)
+    plain_ms = event_ms(torch, lambda: qm.int8_matmul_reference(eq, x, wq, ws), 2)
+    # Yardstick, the contraction only: torch._int_mm on rows quantized
+    # beforehand (cuBLASLt int8; it wants M > 16 and C, N multiples of 8).
+    library_ms = None
+    if M > 16 and C % 8 == 0 and N % 8 == 0:
+        qx, _ = int8_ops.quantize_act(x.reshape(M, C), (1,))
+        w2 = wq.reshape(C, N)
+        library_ms = event_ms(torch, lambda: torch._int_mm(qx, w2), 10)
+    flops = 2 * M * N * C
+    moved = x.numel() * x.element_size() + wq.numel() + 4 * N + M * N * x.element_size()
+    bound = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": flops / FP8_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"phase": "quant_kernel", "kernel": "int8_matmul", "case": name, "eq": eq, "M": M, "C": C,
+            "N": N, "dtype": "fp32" if dt == torch.float32 else "bf16", "max_abs_err": err,
+            "tolerance": tol, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch._int_mm on pre-quantized rows (contraction only)",
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "flops": flops, "bytes": moved,
+            "tops": flops / kernel_ms / 1e9}
+
+
+def _fp8_operands(torch, fp8_ops, a_shape, b_shape, types, gen):
+    a = torch.randn(a_shape, generator=gen, device=DEVICE)
+    b = torch.randn(b_shape, generator=gen, device=DEVICE) * 0.05
+    qa, sa = fp8_ops.quantize(a, types[0])
+    qb, sb = fp8_ops.quantize(b, types[1])
+    return qa, qb, sa * sb
+
+
+def fp8_kernel_case(torch, qm, fp8_ops, name, eq, a_shape, b_shape, types, out_dtype, seed: int) -> dict:
+    """One fp8 product, kernel against plain version, with times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    qa, qb, scale = _fp8_operands(torch, fp8_ops, a_shape, b_shape, types, gen)
+    plan = qm._plan(eq, tuple(qa.shape), tuple(qb.shape))
+    out = qm.scaled_matmul(eq, qa, qb, scale, out_dtype)
+    torch.cuda.synchronize()
+    ref = qm.scaled_matmul_reference(eq, qa, qb, scale, out_dtype)
+    a2, b2 = qm._as_mc_cn(plan, *qm._views(plan, qa, qb))
+    bound_sum = ((a2.float().abs() @ b2.float().abs()) * scale).reshape(ref.shape)
+    u = 2.0**-24
+    gamma = plan.C * u / (1 - plan.C * u)
+    dname = "fp32" if out_dtype == torch.float32 else "bf16"
+    tol = FP8_ULP_REL[dname] * ref.float().abs() + 2 * gamma * bound_sum
+    diff = (out.float() - ref.float()).abs()
+    share = (diff / tol.clamp_min(1e-30)).max().item()
+    err = diff.max().item()
+    if out.shape != ref.shape or not torch.isfinite(out).all() or not share <= 1.0:
+        fail(f"fp8_matmul {name}: max |kernel - plain| {err}, {share:.3g}x its tolerance")
+    del bound_sum, tol, diff
+    M, N, C = plan.M, plan.N, plan.C
+    kernel_ms = event_ms(torch, lambda: qm.scaled_matmul(eq, qa, qb, scale, out_dtype), 10)
+    plain_ms = event_ms(torch, lambda: qm.scaled_matmul_reference(eq, qa, qb, scale, out_dtype), 2)
+    # Yardstick: torch._scaled_mm (cuBLASLt fp8) wants a row-major and b
+    # column-major, dims multiples of 16 and not e5m2 x e5m2; the layouts
+    # are made outside the timing.
+    library_ms = None
+    if M % 16 == 0 and N % 16 == 0 and C % 16 == 0:
+        la = a2.contiguous()
+        lb = b2.t().contiguous().t()
+        one = torch.ones((), device=DEVICE)
+        library_ms = event_ms(
+            torch, lambda: torch._scaled_mm(la, lb, scale_a=scale, scale_b=one, out_dtype=out_dtype), 10)
+    flops = 2 * M * N * C
+    moved = qa.numel() + qb.numel() + 4 + M * N * out.element_size()
+    bound = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": flops / FP8_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"phase": "quant_kernel", "kernel": "fp8_matmul", "case": name, "eq": eq,
+            "orientation": [plan.oa, plan.ob], "types": [str(t).split(".")[-1] for t in types],
+            "M": M, "C": C, "N": N, "out_dtype": dname, "max_abs_err": err,
+            "tolerance_share": share, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch._scaled_mm",
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "flops": flops, "bytes": moved,
+            "tflops": flops / kernel_ms / 1e9}
+
+
+def fp8_cases(torch, fp8_ops):
+    """(name, eq, a shape, b shape, (a type, b type), out dtype) of the fp8
+    products of the train step at Llama-3-8B width, then the extra cases."""
+    e4, e5 = fp8_ops.E4M3, fp8_ops.E5M2
+    B, S = FP8_TRAIN_ROWS
+    cases = []
+    for name, C, N in FP8_SHAPES:
+        cases += [
+            (f"{name}_fwd", "bsd,df->bsf", (B, S, C), (C, N), (e4, e4), torch.bfloat16),
+            (f"{name}_dx", "bsf,df->bsd", (B, S, N), (C, N), (e5, e4), torch.bfloat16),
+            (f"{name}_dw", "bsd,bsf->df", (B, S, C), (B, S, N), (e4, e5), torch.bfloat16),
+        ]
+    cases += [
+        ("lead_trail", "ki,jk->ij", (512, 384), (256, 512), (e4, e4), torch.bfloat16),
+        ("ragged_fwd", "bsd,df->bsf", (1, 37, 100), (100, 50), (e4, e4), torch.bfloat16),
+        ("ragged_dx", "bsf,df->bsd", (1, 37, 50), (100, 50), (e5, e4), torch.float32),
+        ("ragged_dw", "bsd,bsf->df", (1, 37, 100), (1, 37, 50), (e4, e5), torch.bfloat16),
+        ("ragged_lead_trail", "ki,jk->ij", (37, 45), (29, 37), (e5, e5), torch.float32),
+    ]
+    return cases
+
+
+def quant_kernel_phase(torch, card: str, seed: int) -> list[dict]:
+    from accelerate_tpu_torch.native import quant_matmul as qm
+    from accelerate_tpu_torch.ops import fp8 as fp8_ops
+    from accelerate_tpu_torch.ops import int8 as int8_ops
+
+    rows = []
+    for case in INT8_CASES:
+        rows.append(dict(int8_kernel_case(torch, qm, int8_ops, case, seed), card=card))
+        emit(rows[-1])
+    for name, eq, a_shape, b_shape, types, out_dtype in fp8_cases(torch, fp8_ops):
+        rows.append(dict(fp8_kernel_case(torch, qm, fp8_ops, name, eq, a_shape, b_shape, types,
+                                         out_dtype, seed), card=card))
+        emit(rows[-1])
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_setup(torch, llama, cfg, seed: int, precision: str = "bf16"):
     from accelerate_tpu_torch import optim
     from accelerate_tpu_torch.accelerator import Accelerator
 
-    acc = Accelerator(mixed_precision="bf16", seed=seed, max_grad_norm=1.0, device=DEVICE)
+    acc = Accelerator(mixed_precision=precision, seed=seed, max_grad_norm=1.0, device=DEVICE)
     state = acc.create_train_state(lambda s: llama.init(cfg, seed=s, device=DEVICE), optim.adamw(3e-4))
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
     batch = {"input_ids": torch.randint(
@@ -459,7 +670,7 @@ def train_setup(torch, llama, cfg, seed: int):
     return acc, state, batch
 
 
-def train_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
+def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "bf16") -> dict:
     """The port's train step at Llama-3-8B width and 8 layers: launches,
     loss, step time, tokens/s, model-FLOP share and peak memory."""
     cfg = llama.LlamaConfig.llama3_8b(
@@ -467,7 +678,7 @@ def train_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
     )
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    acc, state, batch = train_setup(torch, llama, cfg, seed)
+    acc, state, batch = train_setup(torch, llama, cfg, seed, precision)
     step = acc.make_train_step(lambda p, b, g: llama.loss_fn(p, b, cfg, g))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -485,6 +696,8 @@ def train_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
     steps = 1 + TRAIN_STEPS
     want = {"flash_attention_fwd": 2 * TRAIN_LAYERS, "flash_attention_dq": TRAIN_LAYERS,
             "flash_attention_dkv": TRAIN_LAYERS}
+    if precision == "fp8":
+        want["fp8_matmul"] = FP8_LAUNCHES_PER_LAYER * TRAIN_LAYERS
     for kname, per_step in want.items():
         if launches.get(kname, 0) != per_step * steps:
             fail(f"train: {kname} launched {launches.get(kname, 0)} times over {steps} steps, "
@@ -512,12 +725,14 @@ def train_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {
-        "phase": "train", "model": "llama3-8b", "n_layers": cfg.n_layers, "params": n_params,
+        "phase": "train", "precision": precision, "model": "llama3-8b", "n_layers": cfg.n_layers,
+        "params": n_params,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat_policy": cfg.remat_policy,
         "attention_impl": cfg.attention_impl, "card": card, "setup_s": setup_s,
         "losses": losses, "grad_norms": grad_norms, "step_ms": [s * 1e3 for s in step_s],
         "step_ms_mean": step_mean * 1e3, "tokens_per_s": tokens_per_s,
         "model_flop_share": tokens_per_s * flops_per_token / BF16_FLOPS,
+        "model_flop_share_fp8_peak": tokens_per_s * flops_per_token / FP8_FLOPS,
         "adamw_ms": adamw_ms, "peak_memory_gb": peak_gb, "launches": launches,
         "launches_per_step": {k: launches[k] / steps for k in want},
     }
@@ -570,6 +785,129 @@ def flash_vs_dot_phase(torch, llama, seed: int, card: str) -> dict:
     return row
 
 
+def fp8_vs_bf16_phase(torch, llama, seed: int, card: str) -> dict:
+    """At 2 layers, one step's loss and gradients (before the update) with
+    every projection in fp8 against bf16, on the same params and batch."""
+    from accelerate_tpu_torch.ops.fp8 import fp8_matmuls
+    from accelerate_tpu_torch.utils.dataclasses import MixedPrecisionPolicy
+
+    cfg = llama.LlamaConfig.llama3_8b(
+        n_layers=2, remat=True, remat_policy="attn_and_outputs", attention_impl="flash")
+    acc, state, batch = train_setup(torch, llama, cfg, seed)
+    policy = MixedPrecisionPolicy.from_precision("bf16")
+    leaves = [p for p in state.leaves() if p.requires_grad]
+    results = {}
+    for name in ("fp8", "bf16"):
+        for p in leaves:
+            p.grad = None
+        with fp8_matmuls(name == "fp8"):
+            loss = llama.loss_fn(policy.cast_for_compute(state.params), batch, cfg).float()
+            loss.backward()
+        results[name] = (loss.item(), [p.grad.clone() for p in leaves])
+    (l8, g8), (lb, gb) = results["fp8"], results["bf16"]
+    names = list(llama.flatten(state.params))
+    leaf_rel = {n: ((a - b).norm() / b.norm().clamp_min(1e-30)).item() for n, a, b in zip(names, g8, gb)}
+    norm8 = torch.linalg.vector_norm(torch.stack([g.norm() for g in g8])).item()
+    normb = torch.linalg.vector_norm(torch.stack([g.norm() for g in gb])).item()
+    row = {"phase": "fp8_vs_bf16", "n_layers": 2, "card": card, "loss_fp8": l8, "loss_bf16": lb,
+           "loss_rel_diff": abs(l8 - lb) / abs(lb), "grad_norm_fp8": norm8, "grad_norm_bf16": normb,
+           "grad_norm_ratio": norm8 / normb, "leaf_rel_diff": leaf_rel, "tolerance": FP8_VS_BF16}
+    del state, acc, results, g8, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+    lo, hi = FP8_VS_BF16["grad_norm_ratio"]
+    if not math.isfinite(l8) or row["loss_rel_diff"] > FP8_VS_BF16["loss_rel"]:
+        fail(f"fp8 vs bf16: loss {l8} vs {lb}")
+    if not lo <= row["grad_norm_ratio"] <= hi:
+        fail(f"fp8 vs bf16: grad norm {norm8} vs {normb}")
+    return row
+
+
+def _timed(torch, fn, reps: int = 3):
+    """(last output, host ms of each of ``reps`` calls after one warm-up),
+    each call ending in a synchronize."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def int8_prefill_phase(torch, llama, dispatch, cfg, params, seed: int, card: str) -> dict:
+    """Llama-3-8B quantized to int8 weights on the card: a (4, 512) prefill
+    under `int8_compute` (224 int8_matmul launches) against the dequantize
+    path and the bf16 weights, then 16 greedy tokens through flash-decode
+    on the dequantize path."""
+    from accelerate_tpu_torch.generation import GenerationConfig
+    from accelerate_tpu_torch.ops.int8 import int8_compute
+    from accelerate_tpu_torch.utils.quantization import quantize_pytree, quantized_nbytes
+
+    t0 = time.perf_counter()
+    qparams = quantize_pytree(params, bits=8)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL_BATCH, generator=gen, device=DEVICE)
+    with torch.no_grad():
+        with int8_compute():
+            dispatch.reset_launch_counts()
+            int8_logits = llama.forward(qparams, tokens, cfg)
+            torch.cuda.synchronize()
+            launches = dispatch.launch_counts()["int8_matmul"]
+            if launches != 7 * cfg.n_layers:
+                fail(f"int8 prefill: int8_matmul launched {launches} times, expected {7 * cfg.n_layers}")
+            int8_logits, int8_ms = _timed(torch, lambda: llama.forward(qparams, tokens, cfg))
+        deq_logits, deq_ms = _timed(torch, lambda: llama.forward(qparams, tokens, cfg))
+        bf16_logits, bf16_ms = _timed(torch, lambda: llama.forward(params, tokens, cfg))
+    shape = (*PREFILL_BATCH, cfg.vocab_size)
+    for name, lg in (("int8", int8_logits), ("dequantize", deq_logits), ("bf16", bf16_logits)):
+        if tuple(lg.shape) != shape or not torch.isfinite(lg).all():
+            fail(f"int8 prefill: {name} logits {tuple(lg.shape)} not finite or misshapen")
+    a, b = int8_logits.float(), deq_logits.float()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    rms_drift = ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+    max_drift = ((a - b).abs().max() / b.abs().max()).item()
+    bf16_agree = (b.argmax(-1) == bf16_logits.float().argmax(-1)).float().mean().item()
+    del a, b, int8_logits, deq_logits, bf16_logits
+    if not rms_drift <= INT8_VS_DEQUANT["rms_drift"] or not agree >= INT8_VS_DEQUANT["argmax_agree"]:
+        fail(f"int8 prefill vs the dequantize path: rms drift {rms_drift}, argmax agreement {agree}")
+
+    prompt = tokens[:, :64]
+    dispatch.reset_launch_counts()
+    out = llama.generate(qparams, prompt, cfg, generation_config=GenerationConfig(max_new_tokens=PREFILL_NEW_TOKENS))
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    decode_steps = PREFILL_NEW_TOKENS - 1
+    if counts["flash_decode"] != decode_steps * cfg.n_layers or counts["int8_matmul"] != 0:
+        fail(f"quantized generate: launches {counts}, expected flash_decode {decode_steps * cfg.n_layers}")
+    new = out[:, prompt.shape[1]:]
+    if tuple(out.shape) != (PREFILL_BATCH[0], 64 + PREFILL_NEW_TOKENS) or not (
+            (new >= 0) & (new < cfg.vocab_size)).all():
+        fail(f"quantized generate: output {tuple(out.shape)} or token ids out of range")
+    blocks_bytes = {"bf16": quantized_nbytes(params["blocks"]), "int8": quantized_nbytes(qparams["blocks"])}
+    row = {
+        "phase": "int8_prefill", "model": "llama3-8b", "card": card, "batch": list(PREFILL_BATCH),
+        "quantize_s": quantize_s, "int8_matmul_launches": launches,
+        "int8_forward_ms": int8_ms, "dequantize_forward_ms": deq_ms, "bf16_forward_ms": bf16_ms,
+        "int8_forward_ms_mean": sum(int8_ms) / len(int8_ms),
+        "dequantize_forward_ms_mean": sum(deq_ms) / len(deq_ms),
+        "bf16_forward_ms_mean": sum(bf16_ms) / len(bf16_ms),
+        "weight_bytes": {"bf16": quantized_nbytes(params), "int8": quantized_nbytes(qparams)},
+        "block_weight_bytes": blocks_bytes,
+        "argmax_agree_int8_vs_dequantize": agree, "rms_drift": rms_drift, "max_drift": max_drift,
+        "argmax_agree_dequantize_vs_bf16": bf16_agree, "tolerance": INT8_VS_DEQUANT,
+        "generate_new_tokens": PREFILL_NEW_TOKENS, "generate_launches": counts,
+    }
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -617,6 +955,7 @@ def main(argv: list[str] | None = None) -> int:
         row["card"] = card
         emit(row)
         flash_rows[case[0]] = row
+    quant_rows = {(r["kernel"], r["case"]): r for r in quant_kernel_phase(torch, card, args.seed)}
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -628,6 +967,8 @@ def main(argv: list[str] | None = None) -> int:
     serve_rows = [serve_phase(torch, modules, cfg, params, kv, args, card) for kv in ("bf16", "int8")]
     for row in serve_rows:
         emit(row)
+    prefill_row = int8_prefill_phase(torch, llama, dispatch, cfg, params, args.seed, card)
+    emit(prefill_row)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -635,6 +976,11 @@ def main(argv: list[str] | None = None) -> int:
     train_row = train_phase(torch, llama, dispatch, args.seed, card)
     emit(train_row)
     emit(flash_vs_dot_phase(torch, llama, args.seed, card))
+    fp8_row = train_phase(torch, llama, dispatch, args.seed, card, precision="fp8")
+    fp8_row["bf16"] = {k: train_row[k] for k in (
+        "step_ms_mean", "tokens_per_s", "model_flop_share", "peak_memory_gb", "losses")}
+    emit(fp8_row)
+    emit(fp8_vs_bf16_phase(torch, llama, args.seed, card))
 
     print(card)
     kernels = [{
@@ -672,6 +1018,22 @@ def main(argv: list[str] | None = None) -> int:
             "bound_ms": main[part]["bound_ms"],
             "bound_by": main[part]["bound_by"],
             "library_ms": main[part]["library_ms"],
+        })
+    # The quantized kernels at the main paths' largest products: the gate/up
+    # projection (C 4096, N 14336) of the int8 prefill (M 2048) and of the
+    # fp8 train step's forward (M 4096).
+    for kname, case, replaces, launches in (
+        ("int8_matmul", "gate_up", "accelerate_tpu/native/pallas/quant_matmul.py:190",
+         prefill_row["int8_matmul_launches"]),
+        ("fp8_matmul", "gate_up_fwd", "accelerate_tpu/native/pallas/quant_matmul.py:225",
+         fp8_row["launches"]["fp8_matmul"]),
+    ):
+        q = quant_rows[(kname, case)]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "accelerate_tpu_torch/native/csrc/quant_matmul.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": q["max_abs_err"],
+            "ms": q["kernel_ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+            "bound_by": q["bound_by"], "library_ms": q["library_ms"],
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
-"""The port stands alone: no module of `accelerate_tpu_torch`, nor
-`chip_smoke.py` or the `perf/torch_*.py` scripts, imports JAX or the JAX
-package, and every entry point defaults to the card and refuses to fall
-back to the CPU on its own."""
+"""The port stands alone: no module of `accelerate_tpu_torch` (the
+quantized-compute modules included), nor `chip_smoke.py` or the
+`perf/torch_*.py` scripts, imports JAX or the JAX package, and every entry
+point defaults to the card and refuses to fall back to the CPU on its own."""
 
 import ast
 import os
@@ -17,6 +17,9 @@ from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.models import llama
 from accelerate_tpu_torch.models.convert import params_from_jax
 from accelerate_tpu_torch.ops.flash_attention import flash_attention
+from accelerate_tpu_torch.ops.fp8 import fp8_einsum
+from accelerate_tpu_torch.ops.int8 import int8_einsum
+from accelerate_tpu_torch.utils.quantization import quantize_pytree
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "accelerate_tpu_torch"
@@ -25,7 +28,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
 
 def _sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "perf" / "torch_serve_profile.py",
-               ROOT / "perf" / "torch_train_profile.py"]
+               ROOT / "perf" / "torch_train_profile.py", ROOT / "perf" / "torch_quant_bench.py"]
     return sorted(PKG.rglob("*.py")) + scripts
 
 
@@ -51,11 +54,18 @@ def test_no_forbidden_import_statement(path):
         assert not FORBIDDEN & set(roots), f"{path.name}:{node.lineno} imports {roots}"
 
 
+def test_the_guard_covers_the_quantized_modules():
+    names = set(_module_names())
+    for module in ("utils.quantization", "ops.int8", "ops.fp8", "native.quant_matmul"):
+        assert f"accelerate_tpu_torch.{module}" in names
+    assert (PKG / "native" / "csrc" / "quant_matmul.cu").is_file()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
-        f"for name in {_module_names()!r} + ['chip_smoke', 'perf.torch_serve_profile', 'perf.torch_train_profile']:\n"
+        f"for name in {_module_names()!r} + ['chip_smoke', 'perf.torch_serve_profile', 'perf.torch_train_profile', 'perf.torch_quant_bench']:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -87,8 +97,9 @@ class TestDeviceDefaults:
             lambda: llama.init_cache(llama.LlamaConfig.tiny(), 1, 8),
             lambda: params_from_jax({}, llama.LlamaConfig.tiny()),
             lambda: Accelerator(mixed_precision="bf16"),
+            lambda: Accelerator(mixed_precision="fp8"),
         ],
-        ids=["init", "init_cache", "params_from_jax", "accelerator"],
+        ids=["init", "init_cache", "params_from_jax", "accelerator", "accelerator_fp8"],
     )
     def test_entry_points_default_to_cuda(self, no_cuda, entry):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -104,3 +115,9 @@ class TestDeviceDefaults:
         p.grad = torch.ones(2)
         opt.step()
         assert p.device.type == "cpu"
+        w = torch.randn(64, 80)
+        node = quantize_pytree({"w": w})["w"]
+        assert node["__quant__"].device.type == "cpu"
+        x = torch.randn(2, 3, 64)
+        assert int8_einsum("bsd,df->bsf", x, node["__quant__"], node["scale"]).device.type == "cpu"
+        assert fp8_einsum("bsd,df->bsf", x, w).device.type == "cpu"

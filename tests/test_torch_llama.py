@@ -12,6 +12,11 @@ Tolerances:
   attention casts its probabilities to the cache dtype on both sides.
 - bf16 params (the serving dtype): 6e-2 — every matmul output rounds to
   bf16, in another order in XLA and in PyTorch.
+- Weight-only int8 / int4 trees (fp32 compute): the dequantize path 1e-4,
+  as fp32 (the same dequantized weights on both sides). Under int8 compute
+  2e-3: each product is bit-equal on equal inputs, but an activation that
+  lands within fp32 noise of an int8 rounding boundary may round one step
+  apart (1/127 of its row's max) on the two sides.
 Greedy tokens must agree exactly; each case asserts that its top-2 logit
 gap is wide enough that no near-tie decides the outcome.
 """
@@ -24,9 +29,13 @@ import torch
 
 from accelerate_tpu import generation as jgen
 from accelerate_tpu.models import llama as jllama
+from accelerate_tpu.ops import int8 as jint8
+from accelerate_tpu.utils import quantization as jq
 from accelerate_tpu_torch import generation as tgen
 from accelerate_tpu_torch.models import llama as tllama
 from accelerate_tpu_torch.models.convert import params_from_jax
+from accelerate_tpu_torch.ops import int8 as tint8
+from accelerate_tpu_torch.serving import Engine, Request
 
 CFG_J = jllama.LlamaConfig.tiny()
 CFG_T = tllama.LlamaConfig.tiny()
@@ -282,3 +291,62 @@ class TestTraining:
     def test_unported_training_options_raise(self, weights, field, error):
         with pytest.raises(error):
             tllama.forward(weights[1], torch.zeros(1, 16, dtype=torch.int64), tllama.LlamaConfig.tiny(**field))
+
+
+class TestQuantized:
+    """A weight-only quantized tiny Llama from the JAX `quantize_pytree`,
+    carried across by `params_from_jax`, through `forward` (the dequantize
+    path and `int8_compute`), `forward_with_cache` and the serving
+    `Engine`."""
+
+    @pytest.fixture(scope="class", params=[8, 4], ids=["int8", "int4"])
+    def qweights(self, request, weights):
+        jtree = jq.quantize_pytree(weights[0], bits=request.param)
+        return jtree, params_from_jax(jax.device_get(jtree), CFG_T, device="cpu")
+
+    def test_forward_dequantize_path(self, qweights):
+        tokens = _tokens(2, 24, seed=9)
+        want = jax.jit(jllama.forward, static_argnums=2)(qweights[0], jnp.asarray(tokens), CFG_J)
+        got = tllama.forward(qweights[1], torch.from_numpy(tokens), CFG_T)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+    def test_forward_int8_compute(self, qweights):
+        tokens = _tokens(2, 24, seed=10)
+        fwd = jax.jit(jint8.with_int8_compute(jllama.forward), static_argnums=2)
+        want = np.asarray(fwd(qweights[0], jnp.asarray(tokens), CFG_J))
+        with tint8.int8_compute():
+            got = tllama.forward(qweights[1], torch.from_numpy(tokens), CFG_T).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+        deq = tllama.forward(qweights[1], torch.from_numpy(tokens), CFG_T).numpy()
+        assert np.abs(got - deq).max() > 0  # the int8 products really ran
+
+    def test_forward_with_cache(self, qweights):
+        cache = _run_both(qweights, jnp.float32, torch.float32)
+        assert cache["length"] == 15
+
+    def test_forward_with_cache_int8_compute(self, qweights):
+        prompt = _tokens(2, 12, seed=11)
+        fwc = jax.jit(jint8.with_int8_compute(jllama.forward_with_cache), static_argnums=3)
+        jlog, _ = fwc(qweights[0], jnp.asarray(prompt), jllama.init_cache(CFG_J, 2, 16, jnp.float32), CFG_J)
+        with tint8.int8_compute():
+            tlog, _ = tllama.forward_with_cache(
+                qweights[1], torch.from_numpy(prompt), tllama.init_cache(CFG_T, 2, 16, torch.float32, device="cpu"),
+                CFG_T,
+            )
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=2e-3, atol=2e-3)
+
+    def test_engine_serves_a_quantized_tree(self, qweights):
+        """Each completion equals batch-1 `generate` from the same tree."""
+        tp = qweights[1]
+        gcfg = tgen.GenerationConfig(max_new_tokens=5)
+        engine = Engine(
+            lambda p, t, c: tllama.forward_with_cache(p, t, c, CFG_T),
+            lambda b, m: tllama.init_cache(CFG_T, b, m, torch.float32, device="cpu"),
+            tp, gcfg, slots=2, buckets=(8, 16), max_len=32,
+        )
+        prompts = [_tokens(1, n, seed=20 + n)[0] for n in (5, 9, 12)]
+        completions = engine.serve([Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
+        assert sorted(c.rid for c in completions) == [0, 1, 2]
+        for c in completions:
+            solo = tllama.generate(tp, torch.from_numpy(prompts[c.rid][None]), CFG_T, generation_config=gcfg)
+            np.testing.assert_array_equal(c.tokens[: c.n_new], solo[0, len(prompts[c.rid]):].numpy())
