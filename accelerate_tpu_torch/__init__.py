@@ -14,6 +14,9 @@ neither it nor JAX. It ports the framework slice by slice:
 - `ops.fp8`, `ops.int8`, `utils.quantization`: fp8 training matmuls
   (`mixed_precision="fp8"`), weight-only int8 / int4 trees and int8
   products on them (`int8_compute`);
+- `parallel.host_offload`: `host_offloaded_adamw`, AdamW through the
+  fused-AdamW kernel with its moments on the device or streamed from
+  pinned host memory (``FsdpPlugin(offload_optimizer=True)``);
 - `native`: hand-written CUDA kernels (built with ``nvcc`` at first use)
   and the plain PyTorch version beside each one.
 
@@ -22,8 +25,10 @@ card it raises (`utils.environment.resolve_device`). Kernels launch on CUDA
 tensors; a CPU tensor takes the kernel's plain version (the CPU tests).
 """
 
+from .parallel.host_offload import host_offloaded_adamw
+from .utils.dataclasses import FsdpPlugin
 from .utils.environment import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["FsdpPlugin", "host_offloaded_adamw", "resolve_device", "__version__"]

@@ -16,9 +16,18 @@ Under ``mixed_precision="fp8"`` the step runs the loss and its backward
 inside `ops.fp8.fp8_matmuls`, and warns when no projection reached
 `matmul_einsum` (the JAX `_warn_fp8_noop`).
 
+Host offload of the optimizer: ``strategy=FsdpPlugin(offload_optimizer=
+True)`` keeps the AdamW moments in pinned host memory and streams them
+through the device around each update (`parallel.host_offload`); it needs
+`host_offloaded_adamw` (a plain `optim.adamw` raises, as in JAX). With a
+`host_offloaded_adamw` optimizer, offloaded or not, the global-norm clip is
+not multiplied into the gradients: it is passed to the update as
+``grad_scale`` and applied inside the fused-AdamW kernel (for fp32
+gradients the same product, without a pass over every gradient).
+
 Not ported yet, and absent from the signatures rather than ignored: the
-mesh and sharding strategies, host and disk offload, the fp16 loss scale,
-the non-finite guard, telemetry and the lint.
+mesh and the sharding strategies' placement, disk offload, the fp16 loss
+scale, the non-finite guard, telemetry and the lint.
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ import numpy as np
 import torch
 
 from .ops.fp8 import fp8_hits, fp8_matmuls
-from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
+from .parallel.host_offload import HostOffloadedAdamW, OffloadedAdamW
+from .utils.dataclasses import FsdpPlugin, GradientAccumulationPlugin, MixedPrecisionPolicy
 from .utils.environment import resolve_device
 from .utils.tree import flatten, map_tree
 
@@ -73,8 +83,9 @@ def _microbatch_seed(seed: int, step: int, index: int) -> int:
 
 
 class Accelerator:
-    """Single-device entry point: precision policy, accumulation, clipping
-    and the train step, on ``device`` (default CUDA; raises without one)."""
+    """Single-device entry point: precision policy, accumulation, clipping,
+    optimizer offload and the train step, on ``device`` (default CUDA;
+    raises without one)."""
 
     def __init__(
         self,
@@ -85,9 +96,11 @@ class Accelerator:
         max_grad_norm: float | None = None,
         max_grad_value: float | None = None,
         seed: int | None = None,
+        strategy: FsdpPlugin | None = None,
         device: str | torch.device | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        self.offload_optimizer = strategy is not None and strategy.offload_optimizer
         self.policy = MixedPrecisionPolicy.from_precision(mixed_precision)
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(gradient_accumulation_steps)
@@ -100,7 +113,17 @@ class Accelerator:
         """``init_fn`` is ``(seed) -> params`` (called with the
         Accelerator's seed) or a params tree. Leaves move to the device
         (cast to ``policy.param_dtype`` when set) and become leaf tensors
-        that require grad; ``tx.init`` builds the optimizer over them."""
+        that require grad; ``tx.init`` builds the optimizer over them (a
+        `host_offloaded_adamw` also gets their tree paths and, under
+        ``offload_optimizer``, puts its moments on the host)."""
+        offload_aware = isinstance(tx, HostOffloadedAdamW)
+        if self.offload_optimizer and not offload_aware:
+            raise ValueError(
+                "offload_optimizer requires an offload-aware optimizer: use "
+                "accelerate_tpu_torch.host_offloaded_adamw(...) instead of a plain "
+                "optimizer; the streamed update must know the optimizer's math "
+                "(the DeepSpeedCPUAdam requirement)."
+            )
         params = init_fn(self.seed) if callable(init_fn) else init_fn
         pd = self.policy.param_dtype
 
@@ -111,8 +134,10 @@ class Accelerator:
             return x.detach().requires_grad_(x.is_floating_point())
 
         params = map_tree(master, params)
-        leaves = [x for x in flatten(params).values() if x.requires_grad]
-        return TrainState(step=0, params=params, opt_state=tx.init(leaves))
+        named = {k: x for k, x in flatten(params).items() if x.requires_grad}
+        leaves = list(named.values())
+        opt = tx.init(leaves, list(named), offload=self.offload_optimizer) if offload_aware else tx.init(leaves)
+        return TrainState(step=0, params=params, opt_state=opt)
 
     def make_train_step(
         self, loss_fn: Callable[..., Any], *, has_aux: bool = False
@@ -152,14 +177,22 @@ class Accelerator:
             if max_grad_value is not None:
                 torch._foreach_clamp_min_(grads, -max_grad_value)
                 torch._foreach_clamp_max_(grads, max_grad_value)
+            fused = isinstance(state.opt_state, OffloadedAdamW)
+            grad_scale = None
             if max_grad_norm is not None:
                 gnorm = global_norm(grads)
                 clip = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-                torch._foreach_mul_(grads, clip)
+                if fused:
+                    grad_scale = clip  # applied inside the fused update
+                else:
+                    torch._foreach_mul_(grads, clip)
                 metrics["grad_norm"] = gnorm
             for p, g in zip(leaves, grads):
                 p.grad = g
-            state.opt_state.step()
+            if fused:
+                state.opt_state.step(grad_scale=grad_scale)
+            else:
+                state.opt_state.step()
             return dataclasses.replace(state, step=state.step + 1), metrics
 
         return step_fn

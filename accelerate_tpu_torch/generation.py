@@ -67,8 +67,11 @@ def warp_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         cumulative = torch.softmax(sorted_logits, dim=-1).cumsum(-1)
         # Keep the smallest prefix with cumulative prob >= top_p (always
-        # keeping the most likely token).
+        # keeping the most likely token). Where the fp32 cumsum ends below
+        # top_p the index is V: JAX's fill-mode gather keeps every token
+        # there, and the smallest logit as the cutoff keeps them too.
         cutoff_idx = (cumulative < config.top_p).sum(-1, keepdim=True)
+        cutoff_idx = cutoff_idx.clamp_max(logits.shape[-1] - 1)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     return logits

@@ -333,9 +333,12 @@ def cached_decode_attention(
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, T, K, h) -> int8 values + per-(token, head) bf16 scales. Rounds
-    half to even, as ``jnp.round`` does."""
+    half to even, as ``jnp.round`` does. The scale divides by a tensor:
+    PyTorch on the card turns a divide by a Python scalar into a multiply
+    by its reciprocal, which is not JAX's IEEE divide."""
     xf = x.float()
-    scale = (xf.abs().amax(-1) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(-1)
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127)
     return q.to(torch.int8), scale.to(torch.bfloat16)
 

@@ -64,13 +64,17 @@ def quantize_act(
     """Dynamic int8 scaling: ``(q, scale)`` with ``q ≈ x / scale`` in int8
     and ``scale = amax / 127`` (fp32), per tensor (``reduce_axes=None``) or
     per row (amax over ``reduce_axes``, kept as size-1 dims). Rounds half
-    to even, as ``jnp.round``."""
+    to even, as ``jnp.round``. The scale divides by a tensor: PyTorch on
+    the card turns a divide by a Python scalar into a multiply by its
+    reciprocal, which for some rows is one ulp off the IEEE divide of JAX
+    and of the kernel's row-quantize pass."""
     xf = x.float()
     if reduce_axes is None:
         amax = xf.abs().amax()
     else:
         amax = xf.abs().amax(dim=reduce_axes, keepdim=True)
-    scale = amax.clamp_min(1e-12) / 127.0
+    amax = amax.clamp_min(1e-12)
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
     return q, scale
 

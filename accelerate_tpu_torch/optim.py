@@ -6,9 +6,11 @@ package trains with.
 ``torch.optim.AdamW(foreach=True)`` over the master params. The update is
 the same, because decoupled decay of the old parameter commutes with the
 Adam term: optax's ``p - lr * (adam + wd * p)`` is torch's
-``p * (1 - lr * wd) - lr * adam``. ``fused=True`` is not used: the fused
-optimizer is the yardstick of the fused-AdamW kernel still to port.
-Learning-rate schedules are not ported yet.
+``p * (1 - lr * wd) - lr * adam``. ``fused=True`` is not used: PyTorch's
+fused optimizer is only the yardstick of the port's own fused-AdamW
+kernel, which `host_offloaded_adamw` (`parallel.host_offload`) runs.
+Learning-rate schedules are not ported here yet (`host_offloaded_adamw`
+takes them).
 """
 
 from __future__ import annotations

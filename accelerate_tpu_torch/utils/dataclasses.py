@@ -1,6 +1,7 @@
 """The subset of the JAX package's `utils/dataclasses.py` that the train
-step reads: the precision names, the mixed-precision policy and the
-gradient-accumulation plugin.
+step reads: the precision names, the mixed-precision policy, the
+gradient-accumulation plugin and the FSDP strategy (whose
+``offload_optimizer`` is what acts on one device).
 
 fp8 computes in bf16 and routes every projection through the scaled fp8
 products (`ops.fp8`), as in JAX. fp16, which needs the dynamic loss scale,
@@ -77,3 +78,22 @@ class GradientAccumulationPlugin:
     def __post_init__(self) -> None:
         if self.num_steps < 1:
             raise ValueError(f"gradient accumulation steps must be >= 1, got {self.num_steps}")
+
+
+@dataclass
+class FsdpPlugin:
+    """FSDP / ZeRO-3-style strategy, with the JAX package's fields and
+    defaults. On one device only ``offload_optimizer`` acts: the optimizer
+    moments live in host memory, pinned on a card, and stream through the
+    device around the update (`parallel.host_offload`; it needs
+    `host_offloaded_adamw`). ``min_weight_size`` (smaller tensors stay
+    replicated) and ``state_dict_type`` change nothing on one device, as on
+    the JAX package's 1 x 1 mesh.
+
+    No environment variable is read: the port has no launcher, so a
+    variable a JAX launch left behind (``ATX_OFFLOAD_OPTIMIZER``) must not
+    change a port run."""
+
+    min_weight_size: int = 2**11
+    state_dict_type: str = "SHARDED_STATE_DICT"
+    offload_optimizer: bool = False

@@ -51,8 +51,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8. fp8 train: the same with mixed_precision="fp8", 200 fp8_matmul
    launches a step besides the flash ones, the bf16 step's numbers beside
    it; then, at 2 layers, one fp8 step's loss and grad norm against bf16's;
-9. a {"kernels": [...]} line with the six hand-written kernels;
+9. a {"kernels": [...]} line with the seven hand-written kernels;
 10. last line: {"ok": true, "device": {...}}.
+
+Besides, after the quant kernel phase: adamw_kernel, the fused-AdamW kernel
+against its plain version (`host_offload._adamw_slice`) at the main path's
+largest leaf (blocks.mlp.w_gate at 8 layers, 469.8 M fp32 elements), one
+layer slice of it, final_norm, a 24-element leaf, an odd misaligned size,
+bf16 grads, bf16 moments, without grad_scale, counts 1 to 1000, each in
+both modes (update out; update added into p), with the kernel's, the plain
+version's and `torch.optim.AdamW(fused=True)`'s device times and the bound;
+and kv_scale, whether `quantize_kv`'s scales equal an IEEE divide on the
+card. After the train phase: fused_adamw_train, the same 8-layer step with
+the device-resident `host_offloaded_adamw` (12 fused_adamw launches a step,
+losses within 1e-3 of the foreach run's). After fp8 train: offload_train,
+Llama-3-8B width at 16 layers with `FsdpPlugin(offload_optimizer=True)`
+(moments in pinned host memory, 147 fused_adamw launches a step, finite
+and falling loss, step and update times, copy rate, peak device memory
+beside the reckoned device-resident need); and offload_parity, 3 steps at
+2 layers offloaded and device-resident, bit-identical params and moments.
 
 Exits non-zero without a CUDA device, and without the package beside it.
 """
@@ -66,6 +83,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 DEVICE = "cuda"
@@ -170,6 +188,43 @@ FP8_LAUNCHES_PER_LAYER = 7 + 14 + 4
 # less. A dropped scale or a wrong operand moves both by orders of
 # magnitude.
 FP8_VS_BF16 = {"loss_rel": 1e-2, "grad_norm_ratio": (0.9, 1.1)}
+# Fused AdamW (kernel 10) against its plain version: (name, elements, g
+# dtype, moment dtype, grad_scale on, count, misaligned). The main path's
+# largest leaf (blocks.mlp.w_gate at 8 layers, 8 x 4096 x 14336), one layer
+# slice of it (the offloaded path's largest launch), final_norm, a 24-element
+# leaf, an odd size at a 4-byte offset (the scalar path), bf16 grads, bf16
+# moments, no grad_scale; counts 1, 7 and 1000. Each case in both modes
+# (update written out; update added into p).
+W_GATE = 4096 * 14336
+ADAMW_CASES = (
+    ("w_gate_8_layers", 8 * W_GATE, "fp32", "fp32", True, 1000, False),
+    ("w_gate_slice", W_GATE, "fp32", "fp32", True, 1, False),
+    ("final_norm", 4096, "fp32", "fp32", True, 7, False),
+    ("leaf_24", 24, "fp32", "fp32", True, 1000, False),
+    ("ragged_misaligned", 1_000_003, "fp32", "fp32", True, 7, True),
+    ("g_bf16", W_GATE, "bf16", "fp32", True, 7, False),
+    ("mu_bf16", W_GATE, "fp32", "bf16", True, 7, False),
+    ("no_grad_scale", W_GATE, "fp32", "fp32", False, 1000, False),
+)
+ADAMW_HP = dict(lr_t=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+# The kernel repeats the plain version's operations (IEEE fp32 ops, bf16
+# rounding after each with bf16 moments), so the two should agree bit for
+# bit; the stated tolerance is JAX's own kernel-vs-body one for fp32
+# moments (rtol 1e-6, atol 1e-7) and one bf16 rounding for bf16 ones. An
+# applied p may differ by one more rounding of p itself.
+ADAMW_TOLERANCE = {"fp32": (1e-7, 1e-6), "bf16": (1e-7, 2.0**-8)}
+ADAMW_OPS = 17  # fp32 operations an element (scale, EMAs, corrections, sqrt, decay, lr, apply)
+# The 8-layer train step with `host_offloaded_adamw` instead of the foreach
+# AdamW: the same math in another order of operations, so the losses of the
+# two runs agree far inside this (relative, at every step).
+FUSED_VS_FOREACH_LOSS = 1e-3
+# Offloaded moments: Llama-3-8B width at 16 layers (4.54 B params), the
+# depth at which device-resident fp32 state (16 B a param) no longer fits
+# the card while masters + gradients (8 B) do. 9 stacked leaves are updated
+# one layer slice at a time and embed, final_norm and lm_head whole.
+OFFLOAD_LAYERS = 16
+LLAMA_STACKED_LEAVES, LLAMA_LEAVES = 9, 12
+PARITY_LAYERS, PARITY_STEPS = 2, 3
 
 
 def fail(msg: str) -> None:
@@ -658,27 +713,168 @@ def quant_kernel_phase(torch, card: str, seed: int) -> list[dict]:
     return rows
 
 
-def train_setup(torch, llama, cfg, seed: int, precision: str = "bf16"):
+def _offset_copy(torch, t, off: int):
+    """A copy of ``t`` that starts ``off`` elements into a fresh buffer, so
+    that a nonzero ``off`` misaligns it."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:]
+    view.copy_(t)
+    return view
+
+
+def _adamw_within(torch, label: str, got, ref, tol) -> dict:
+    """Fails unless every element is finite and |got - ref| <= tol (an
+    elementwise tensor); returns the largest error, the largest share of
+    the tolerance and the share of bit-equal elements."""
+    diff = (got.float() - ref.float()).abs()
+    share = (diff / tol).max().item()
+    if not torch.isfinite(got).all() or not share <= 1.0:
+        fail(f"{label}: max |kernel - plain| {diff.max().item()}, {share:.3g}x its tolerance")
+    return {"max_abs_err": diff.max().item(), "tolerance_share": share,
+            "bit_equal": (got == ref).float().mean().item()}
+
+
+def adamw_kernel_case(torch, fa, ho, case, seed: int) -> dict:
+    """Kernel 10 against its plain version (`host_offload._adamw_slice`) on
+    the same leaf, in both modes, with device times of the kernel, the
+    plain version and `torch.optim.AdamW(fused=True)` (a yardstick: its
+    math is torch's, not optax's), and the bound."""
+    name, n, g_name, m_name, with_scale, count, misaligned = case
+    dts = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    gdt, mdt = dts[g_name], dts[m_name]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    off = 1 if misaligned else 0
+
+    def draw(scale, dt, magnitude=False):
+        x = torch.randn(n, generator=gen, device=DEVICE)
+        x = x.abs_() if magnitude else x
+        return _offset_copy(torch, (x * scale).to(dt), off)
+
+    # The scales of a trained leaf's state: g ~ 1e-2, mu ~ 1e-3, nu ~ 1e-6.
+    g, mu0, nu0, p0 = draw(1e-2, gdt), draw(1e-3, mdt), draw(1e-6, mdt, True), draw(1.0, torch.float32)
+    scale = torch.full((1,), 0.5, device=DEVICE) if with_scale else None
+    args = (count, *ADAMW_HP.values())
+    ref_u, ref_mu, ref_nu = ho._adamw_slice(g, mu0, nu0, p0, *args, scale)
+    ref_p = p0 + ref_u
+    atol, rtol = ADAMW_TOLERANCE[m_name]
+    errs = {}
+    mu, nu = _offset_copy(torch, mu0, off), _offset_copy(torch, nu0, off)
+    u, _, _ = fa.fused_adamw(g, mu, nu, p0, *args, scale)
+    torch.cuda.synchronize()
+    for label, got, ref in (("update", u, ref_u), ("mu", mu, ref_mu), ("nu", nu, ref_nu)):
+        errs[label] = _adamw_within(torch, f"fused_adamw {name} {label}", got, ref, atol + rtol * ref.float().abs())
+    del u
+    mu, nu, p = (_offset_copy(torch, t, off) for t in (mu0, nu0, p0))
+    fa.fused_adamw(g, mu, nu, p, *args, scale, apply=True)
+    torch.cuda.synchronize()
+    # p: the update's tolerance plus one fp32 rounding of the sum.
+    p_tol = atol + rtol * ref_u.float().abs() + 2.0**-23 * ref_p.abs()
+    errs["applied_p"] = _adamw_within(torch, f"fused_adamw {name} applied p", p, ref_p, p_tol)
+    for label, got, ref in (("applied_mu", mu, ref_mu), ("applied_nu", nu, ref_nu)):
+        errs[label] = _adamw_within(torch, f"fused_adamw {name} {label}", got, ref, atol + rtol * ref.float().abs())
+    del ref_u, ref_mu, ref_nu, ref_p, p_tol
+    torch.cuda.empty_cache()
+
+    reps = 10
+    kernel_ms = event_ms(torch, lambda: fa.fused_adamw(g, mu, nu, p, *args, scale, apply=True), reps)
+    update_ms = event_ms(torch, lambda: fa.fused_adamw(g, mu, nu, p, *args, scale), reps)
+    plain_ms = event_ms(torch, lambda: ho._adamw_slice(g, mu0, nu0, p0, *args, scale), 2)
+    # Yardstick: PyTorch's fused AdamW on an fp32 copy of p with g as its
+    # gradient (fp32 moments; it keeps its own state).
+    param = p0.detach().clone()
+    param.grad = g.float().contiguous()
+    lib = torch.optim.AdamW([param], lr=ADAMW_HP["lr_t"], betas=(ADAMW_HP["b1"], ADAMW_HP["b2"]),
+                            eps=ADAMW_HP["eps"], weight_decay=ADAMW_HP["weight_decay"], fused=True)
+    library_ms = event_ms(torch, lib.step, reps)
+    del lib, param
+    gs, ms_, ps = g.element_size(), mu.element_size(), p.element_size()
+    moved = {"apply": n * (gs + 4 * ms_ + 2 * ps), "update": n * (gs + ps + 5 * ms_)}
+    moved["update_then_apply"] = moved["update"] + n * (2 * ps + ms_)
+    ops = ADAMW_OPS * n
+    bounds = {}
+    for mode, nbytes in moved.items():
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_FLOPS * 1e3}
+        bounds[mode] = (bound[max(bound, key=bound.get)], max(bound, key=bound.get))
+    row = {"phase": "adamw_kernel", "case": name, "n": n, "g_dtype": g_name, "moment_dtype": m_name,
+           "grad_scale": with_scale, "count": count, "misaligned": misaligned,
+           "tolerance": ADAMW_TOLERANCE[m_name], "errors": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "kernel_ms": kernel_ms, "kernel_update_ms": update_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "torch.optim.AdamW(fused=True).step()",
+           "bound_ms": bounds["apply"][0], "bound_by": bounds["apply"][1],
+           "bound_update_ms": bounds["update"][0],
+           "bound_update_then_apply_ms": bounds["update_then_apply"][0],
+           "bytes": moved, "kernel_gb_per_s": moved["apply"] / kernel_ms / 1e6}
+    del g, mu0, nu0, p0, mu, nu, p
+    torch.cuda.empty_cache()
+    return row
+
+
+def adamw_kernel_phase(torch, card: str, seed: int) -> dict[str, dict]:
+    from accelerate_tpu_torch.native import fused_adamw as fa
+    from accelerate_tpu_torch.parallel import host_offload as ho
+
+    rows = {}
+    for case in ADAMW_CASES:
+        rows[case[0]] = dict(adamw_kernel_case(torch, fa, ho, case, seed), card=card)
+        emit(rows[case[0]])
+    return rows
+
+
+def kv_scale_phase(torch, layers, seed: int, card: str) -> dict:
+    """Does PyTorch on the card divide a tensor by a Python scalar as an
+    IEEE divide? `layers.quantize_kv` computes its scales as JAX does
+    (``amax / 127``, an IEEE divide): it must equal that divide bit for
+    bit. Counts the scales where the divide by the Python scalar 127.0
+    differs, on a Llama-3-8B-shaped KV slab and on int8 prefill rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(8, SERVE_MAX_LEN, 8, 128, generator=gen, device=DEVICE).to(torch.bfloat16)
+    rows = torch.randn(PREFILL_BATCH[0] * PREFILL_BATCH[1], 4096, generator=gen, device=DEVICE).to(torch.bfloat16)
+    out = {"phase": "kv_scale", "card": card}
+    for label, t in (("kv", x), ("prefill_rows", rows)):
+        amax = t.float().abs().amax(-1)
+        ieee = amax / torch.full_like(amax, 127.0)
+        out[f"{label}_scalar_divide_mismatches"] = int((amax / 127.0 != ieee).sum().item())
+        out[f"{label}_scales"] = amax.numel()
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    q, s = layers.quantize_kv(x)
+    want_q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    out["quantize_kv_equals_ieee"] = bool(torch.equal(s, scale.to(torch.bfloat16)) and torch.equal(q, want_q))
+    if not out["quantize_kv_equals_ieee"]:
+        fail("quantize_kv: scales or values differ from the IEEE divide amax / 127")
+    return out
+
+
+def train_setup(torch, llama, cfg, seed: int, precision: str = "bf16", tx=None, strategy=None):
     from accelerate_tpu_torch import optim
     from accelerate_tpu_torch.accelerator import Accelerator
 
-    acc = Accelerator(mixed_precision=precision, seed=seed, max_grad_norm=1.0, device=DEVICE)
-    state = acc.create_train_state(lambda s: llama.init(cfg, seed=s, device=DEVICE), optim.adamw(3e-4))
+    acc = Accelerator(mixed_precision=precision, seed=seed, max_grad_norm=1.0, strategy=strategy, device=DEVICE)
+    state = acc.create_train_state(lambda s: llama.init(cfg, seed=s, device=DEVICE), tx or optim.adamw(3e-4))
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
     batch = {"input_ids": torch.randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device=DEVICE)}
     return acc, state, batch
 
 
-def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "bf16") -> dict:
+def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "bf16",
+                optimizer: str = "adamw") -> dict:
     """The port's train step at Llama-3-8B width and 8 layers: launches,
-    loss, step time, tokens/s, model-FLOP share and peak memory."""
+    loss, step time, tokens/s, model-FLOP share and peak memory; with
+    ``optimizer="host_offloaded_adamw"`` the device-resident fused AdamW
+    (one kernel launch a leaf) instead of the foreach one."""
+    from accelerate_tpu_torch import host_offloaded_adamw
+
     cfg = llama.LlamaConfig.llama3_8b(
         n_layers=TRAIN_LAYERS, remat=True, remat_policy="attn_and_outputs", attention_impl="flash"
     )
+    fused = optimizer == "host_offloaded_adamw"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    acc, state, batch = train_setup(torch, llama, cfg, seed, precision)
+    acc, state, batch = train_setup(torch, llama, cfg, seed, precision,
+                                    tx=host_offloaded_adamw(3e-4) if fused else None)
     step = acc.make_train_step(lambda p, b, g: llama.loss_fn(p, b, cfg, g))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -698,6 +894,8 @@ def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "
             "flash_attention_dkv": TRAIN_LAYERS}
     if precision == "fp8":
         want["fp8_matmul"] = FP8_LAUNCHES_PER_LAYER * TRAIN_LAYERS
+    if fused:
+        want["fused_adamw"] = LLAMA_LEAVES
     for kname, per_step in want.items():
         if launches.get(kname, 0) != per_step * steps:
             fail(f"train: {kname} launched {launches.get(kname, 0)} times over {steps} steps, "
@@ -707,7 +905,7 @@ def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "
     if not losses[-1] < losses[0]:
         fail(f"train: loss did not fall on a repeated batch: {losses}")
 
-    # The optimizer update alone (AdamW foreach over the fp32 masters).
+    # The optimizer update alone (over the fp32 masters, gradients unscaled).
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     state.opt_state.step()
@@ -725,7 +923,8 @@ def train_phase(torch, llama, dispatch, seed: int, card: str, precision: str = "
     gc.collect()
     torch.cuda.empty_cache()
     return {
-        "phase": "train", "precision": precision, "model": "llama3-8b", "n_layers": cfg.n_layers,
+        "phase": "fused_adamw_train" if fused else "train", "precision": precision,
+        "optimizer": optimizer, "model": "llama3-8b", "n_layers": cfg.n_layers,
         "params": n_params,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat_policy": cfg.remat_policy,
         "attention_impl": cfg.attention_impl, "card": card, "setup_s": setup_s,
@@ -820,6 +1019,168 @@ def fp8_vs_bf16_phase(torch, llama, seed: int, card: str) -> dict:
         fail(f"fp8 vs bf16: loss {l8} vs {lb}")
     if not lo <= row["grad_norm_ratio"] <= hi:
         fail(f"fp8 vs bf16: grad norm {norm8} vs {normb}")
+    return row
+
+
+def _host_memory() -> dict:
+    """`free -g` of the machine: the pinned moments must fit its RAM."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True, check=True, timeout=60)
+    return {"free_g": out.stdout.strip().splitlines()}
+
+
+def offload_train_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
+    """The train step with the optimizer moments offloaded to pinned host
+    memory, at Llama-3-8B width and `OFFLOAD_LAYERS` layers, where the
+    device-resident state would not fit the card: launches (every stacked
+    leaf once a layer, the others whole), pinned host moments, finite and
+    falling loss, step time, the update's time and copy rate, peak device
+    memory beside the reckoned device-resident need."""
+    from accelerate_tpu_torch import FsdpPlugin, host_offloaded_adamw
+
+    cfg = llama.LlamaConfig.llama3_8b(
+        n_layers=OFFLOAD_LAYERS, remat=True, remat_policy="attn_and_outputs", attention_impl="flash"
+    )
+    host_before = _host_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        acc, state, batch = train_setup(torch, llama, cfg, seed, tx=host_offloaded_adamw(3e-4),
+                                        strategy=FsdpPlugin(offload_optimizer=True))
+    step = acc.make_train_step(lambda p, b, g: llama.loss_fn(p, b, cfg, g))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    opt = state.opt_state
+    moments = [t for st in opt.state.values() for t in (st["mu"], st["nu"])]
+    if not opt.offload or not all(t.device.type == "cpu" and t.is_pinned() for t in moments):
+        fail("offload: the optimizer moments are not pinned host tensors")
+    moment_bytes = sum(t.numel() * t.element_size() for t in moments)
+    host_after = _host_memory()
+
+    dispatch.reset_launch_counts()
+    losses, step_s, grad_norms = [], [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        grad_norms.append(metrics["grad_norm"].item())
+    launches = dispatch.launch_counts()
+    steps = 1 + TRAIN_STEPS
+    per_step = LLAMA_STACKED_LEAVES * OFFLOAD_LAYERS + (LLAMA_LEAVES - LLAMA_STACKED_LEAVES)
+    if launches.get("fused_adamw", 0) != per_step * steps:
+        fail(f"offload: fused_adamw launched {launches.get('fused_adamw', 0)} times over {steps} steps, "
+             f"expected {per_step} per step")
+    for kname, n in (("flash_attention_fwd", 2 * OFFLOAD_LAYERS), ("flash_attention_dq", OFFLOAD_LAYERS),
+                     ("flash_attention_dkv", OFFLOAD_LAYERS)):
+        if launches.get(kname, 0) != n * steps:
+            fail(f"offload: {kname} launched {launches.get(kname, 0)} times, expected {n} per step")
+    if not all(math.isfinite(x) for x in losses + grad_norms):
+        fail(f"offload: non-finite loss or grad norm {losses} {grad_norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"offload: loss did not fall on a repeated batch: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # The update alone: host clock and CUDA events around one more step.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    opt.step()
+    end.record()
+    torch.cuda.synchronize()
+    update_host_ms = (time.perf_counter() - t0) * 1e3
+    update_ms = start.elapsed_time(end)
+
+    n_params = cfg.param_count()
+    shapes = [(name, p) for p, name in opt.leaves()]
+    stacked_slice = max(p[0].numel() for name, p in shapes if name.startswith("blocks."))
+    whole = max(p.numel() for name, p in shapes if not name.startswith("blocks."))
+    slot_bytes = 2 * moments[0].element_size() * (3 * stacked_slice + whole)
+    step_mean = sum(step_s[1:]) / TRAIN_STEPS
+    tokens_per_s = TRAIN_BATCH * (TRAIN_SEQ - 1) / step_mean
+    flops_per_token = 6.0 * n_params + 6.0 * cfg.n_layers * cfg.d_model * TRAIN_SEQ
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    # Device-resident: 16 B a param, the offloaded run's 8 (masters and
+    # gradients) plus the moments' 8, and the rest as this run measured it.
+    need_gb = peak_gb + moment_bytes / 1e9
+    host_stats = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                  if "bytes" in k and (k.endswith(".current") or k.endswith(".peak"))}
+    row = {
+        "phase": "offload_train", "model": "llama3-8b", "n_layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "card": card, "setup_s": setup_s,
+        "host_memory_before": host_before, "host_memory_after": host_after,
+        "warnings": [str(w.message) for w in caught],
+        "moments_pinned_gb": moment_bytes / 1e9, "pinned_host_allocator": host_stats,
+        "losses": losses, "grad_norms": grad_norms, "step_ms": [x * 1e3 for x in step_s],
+        "step_ms_mean": step_mean * 1e3, "tokens_per_s": tokens_per_s,
+        "model_flop_share": tokens_per_s * flops_per_token / BF16_FLOPS,
+        "update_ms": update_ms, "update_host_ms": update_host_ms,
+        "update_share_of_step": update_ms / (step_mean * 1e3),
+        "h2d_bytes_per_step": moment_bytes, "d2h_bytes_per_step": moment_bytes,
+        "h2d_gb_per_s_each_way": moment_bytes / update_ms / 1e6,
+        "peak_memory_gb": peak_gb, "slot_gb": slot_bytes / 1e9,
+        "device_resident_need_gb": need_gb, "card_memory_gb": card_gb,
+        "device_resident_exceeds_card": need_gb > card_gb,
+        "launches": launches, "fused_adamw_per_step": launches["fused_adamw"] / steps,
+    }
+    del state, acc, step, batch, opt, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def offload_parity_phase(torch, llama, dispatch, seed: int, card: str) -> dict:
+    """At Llama-3-8B width and `PARITY_LAYERS` layers, `PARITY_STEPS`
+    steps with the moments offloaded and as many device-resident, from the
+    same params and batch: the same kernel on the same elements, so the
+    final params and moments must be bit-identical."""
+    from accelerate_tpu_torch import FsdpPlugin, host_offloaded_adamw
+
+    cfg = llama.LlamaConfig.llama3_8b(
+        n_layers=PARITY_LAYERS, remat=True, remat_policy="attn_and_outputs", attention_impl="flash"
+    )
+    runs = {}
+    for offload in (False, True):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the unstacked-moments warning (embed, lm_head)
+            acc, state, batch = train_setup(torch, llama, cfg, seed, tx=host_offloaded_adamw(3e-4),
+                                            strategy=FsdpPlugin(offload_optimizer=offload))
+        step = acc.make_train_step(lambda p, b, g: llama.loss_fn(p, b, cfg, g))
+        dispatch.reset_launch_counts()
+        losses = []
+        for _ in range(PARITY_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()["fused_adamw"]
+        per_step = LLAMA_STACKED_LEAVES * PARITY_LAYERS + 3 if offload else LLAMA_LEAVES
+        if launches != per_step * PARITY_STEPS:
+            fail(f"offload parity: fused_adamw launched {launches} times, expected {per_step} a step")
+        for p in state.leaves():
+            p.grad = None
+        runs[offload] = (state, losses, launches)
+        del acc, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    (dev, dev_losses, dev_launches), (off, off_losses, off_launches) = runs[False], runs[True]
+    differ = []
+    for (name, a), b in zip(llama.flatten(dev.params).items(), llama.flatten(off.params).values()):
+        if not torch.equal(a, b):
+            differ.append(name)
+        for m in ("mu", "nu"):
+            if not torch.equal(dev.opt_state.state[a][m], off.opt_state.state[b][m].to(DEVICE)):
+                differ.append(f"{name}.{m}")
+    row = {"phase": "offload_parity", "n_layers": PARITY_LAYERS, "steps": PARITY_STEPS, "card": card,
+           "losses_device_resident": dev_losses, "losses_offloaded": off_losses,
+           "fused_adamw_launches": {"device_resident": dev_launches, "offloaded": off_launches},
+           "bit_identical": not differ, "differ": differ}
+    del runs, dev, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ:
+        fail(f"offload parity: offloaded and device-resident differ in {differ}")
     return row
 
 
@@ -956,6 +1317,8 @@ def main(argv: list[str] | None = None) -> int:
         emit(row)
         flash_rows[case[0]] = row
     quant_rows = {(r["kernel"], r["case"]): r for r in quant_kernel_phase(torch, card, args.seed)}
+    adamw_rows = adamw_kernel_phase(torch, card, args.seed)
+    emit(kv_scale_phase(torch, layers, args.seed, card))
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -975,12 +1338,22 @@ def main(argv: list[str] | None = None) -> int:
 
     train_row = train_phase(torch, llama, dispatch, args.seed, card)
     emit(train_row)
+    fused_row = train_phase(torch, llama, dispatch, args.seed, card, optimizer="host_offloaded_adamw")
+    fused_row["foreach"] = {k: train_row[k] for k in (
+        "step_ms_mean", "tokens_per_s", "model_flop_share", "peak_memory_gb", "adamw_ms", "losses")}
+    fused_row["loss_rel_diff"] = [abs(a - b) / abs(b) for a, b in zip(fused_row["losses"], train_row["losses"])]
+    emit(fused_row)
+    if not max(fused_row["loss_rel_diff"]) <= FUSED_VS_FOREACH_LOSS:
+        fail(f"fused AdamW vs foreach: losses {fused_row['losses']} vs {train_row['losses']}")
     emit(flash_vs_dot_phase(torch, llama, args.seed, card))
     fp8_row = train_phase(torch, llama, dispatch, args.seed, card, precision="fp8")
     fp8_row["bf16"] = {k: train_row[k] for k in (
         "step_ms_mean", "tokens_per_s", "model_flop_share", "peak_memory_gb", "losses")}
     emit(fp8_row)
     emit(fp8_vs_bf16_phase(torch, llama, args.seed, card))
+    offload_row = offload_train_phase(torch, llama, dispatch, args.seed, card)
+    emit(offload_row)
+    emit(offload_parity_phase(torch, llama, dispatch, args.seed, card))
 
     print(card)
     kernels = [{
@@ -1035,6 +1408,17 @@ def main(argv: list[str] | None = None) -> int:
             "ms": q["kernel_ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
             "bound_by": q["bound_by"], "library_ms": q["library_ms"],
         })
+    # Kernel 10 at the device-resident 8-layer step's largest leaf
+    # (blocks.mlp.w_gate), in the mode the step uses (the update added
+    # into p); launches from that step.
+    adamw = adamw_rows["w_gate_8_layers"]
+    kernels.append({
+        "name": "fused_adamw", "route": "cuda", "source": "accelerate_tpu_torch/native/csrc/fused_adamw.cu",
+        "replaces": "accelerate_tpu/native/pallas/fused_adamw.py:129",
+        "launches": fused_row["launches"]["fused_adamw"], "max_abs_err": adamw["max_abs_err"],
+        "ms": adamw["kernel_ms"], "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
+        "bound_by": adamw["bound_by"], "library_ms": adamw["library_ms"],
+    })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

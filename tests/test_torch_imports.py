@@ -1,5 +1,5 @@
 """The port stands alone: no module of `accelerate_tpu_torch` (the
-quantized-compute modules included), nor `chip_smoke.py` or the
+quantized-compute and offload modules included), nor `chip_smoke.py` or the
 `perf/torch_*.py` scripts, imports JAX or the JAX package, and every entry
 point defaults to the card and refuses to fall back to the CPU on its own."""
 
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from accelerate_tpu_torch import optim, resolve_device
+from accelerate_tpu_torch import FsdpPlugin, host_offloaded_adamw, optim, resolve_device
 from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.models import llama
 from accelerate_tpu_torch.models.convert import params_from_jax
@@ -28,7 +28,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
 
 def _sources():
     scripts = [ROOT / "chip_smoke.py", ROOT / "perf" / "torch_serve_profile.py",
-               ROOT / "perf" / "torch_train_profile.py", ROOT / "perf" / "torch_quant_bench.py"]
+               ROOT / "perf" / "torch_train_profile.py", ROOT / "perf" / "torch_quant_bench.py",
+               ROOT / "perf" / "torch_offload_bench.py"]
     return sorted(PKG.rglob("*.py")) + scripts
 
 
@@ -61,11 +62,18 @@ def test_the_guard_covers_the_quantized_modules():
     assert (PKG / "native" / "csrc" / "quant_matmul.cu").is_file()
 
 
+def test_the_guard_covers_the_offload_modules():
+    names = set(_module_names())
+    for module in ("parallel", "parallel.host_offload", "native.fused_adamw"):
+        assert f"accelerate_tpu_torch.{module}" in names
+    assert (PKG / "native" / "csrc" / "fused_adamw.cu").is_file()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
-        f"for name in {_module_names()!r} + ['chip_smoke', 'perf.torch_serve_profile', 'perf.torch_train_profile', 'perf.torch_quant_bench']:\n"
+        f"for name in {_module_names()!r} + ['chip_smoke', 'perf.torch_serve_profile', 'perf.torch_train_profile', 'perf.torch_quant_bench', 'perf.torch_offload_bench']:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -98,8 +106,9 @@ class TestDeviceDefaults:
             lambda: params_from_jax({}, llama.LlamaConfig.tiny()),
             lambda: Accelerator(mixed_precision="bf16"),
             lambda: Accelerator(mixed_precision="fp8"),
+            lambda: Accelerator(strategy=FsdpPlugin(offload_optimizer=True)),
         ],
-        ids=["init", "init_cache", "params_from_jax", "accelerator", "accelerator_fp8"],
+        ids=["init", "init_cache", "params_from_jax", "accelerator", "accelerator_fp8", "accelerator_offload"],
     )
     def test_entry_points_default_to_cuda(self, no_cuda, entry):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -115,6 +124,12 @@ class TestDeviceDefaults:
         p.grad = torch.ones(2)
         opt.step()
         assert p.device.type == "cpu"
+        for offload in (False, True):
+            q = torch.zeros(2, 3, requires_grad=True)
+            fused = host_offloaded_adamw(1e-3).init([q], ["blocks.w"], offload=offload)
+            q.grad = torch.ones(2, 3)
+            fused.step()
+            assert q.device.type == "cpu" and fused.state[q]["mu"].device.type == "cpu"
         w = torch.randn(64, 80)
         node = quantize_pytree({"w": w})["w"]
         assert node["__quant__"].device.type == "cpu"
